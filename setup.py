@@ -10,7 +10,9 @@ setup(
     description=("TPU-native BFT consensus framework with the capabilities "
                  "of cita-cloud/consensus_overlord"),
     packages=find_packages(include=["consensus_overlord_tpu",
-                                    "consensus_overlord_tpu.*"]),
+                                    "consensus_overlord_tpu.*",
+                                    "consensus_overlord_tpu_torch",
+                                    "consensus_overlord_tpu_torch.*"]),
     python_requires=">=3.10",
     install_requires=[],  # jax/grpcio/protobuf provided by the image/env
 )

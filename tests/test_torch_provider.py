@@ -1,0 +1,205 @@
+"""CudaBlsCrypto (consensus_overlord_tpu_torch/crypto/cuda_provider.py) on
+the CPU against the JAX package's CpuBlsCrypto: verdict for verdict on
+valid, invalid, malformed, unknown-voter, wrong-signer, order-3 and
+mixed-hash batches; the pubkey cache carried over from a JAX provider;
+and the port's import boundary (no jax, nothing of the JAX package).
+
+device_threshold=1 sends every batch through the device path, which on
+CPU tensors runs each kernel's plain version."""
+
+import ast
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from consensus_overlord_tpu.core.sm3 import sm3_hash
+from consensus_overlord_tpu.crypto import bls12381 as joracle
+from consensus_overlord_tpu.crypto.provider import CpuBlsCrypto
+from consensus_overlord_tpu_torch.convert import pubkey_cache_from_jax
+from consensus_overlord_tpu_torch.crypto.cuda_provider import CudaBlsCrypto
+
+# One intra-op thread: several worker processes share the cores.
+torch.set_num_threads(1)
+
+N = 8
+KEYS = [0x1111 * (i + 1) + 7 for i in range(N)]
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.fixture(scope="module")
+def cpus():
+    return [CpuBlsCrypto(k) for k in KEYS]
+
+
+@pytest.fixture(scope="module")
+def port(cpus):
+    p = CudaBlsCrypto(KEYS[0], device_threshold=1, device="cpu")
+    p.update_pubkeys([c.pub_key for c in cpus])  # device-path validation
+    return p
+
+
+def votes(cpus, msg=b"block-hash-1"):
+    h = sm3_hash(msg)
+    return [c.sign(h) for c in cpus], [h] * len(cpus), [c.pub_key
+                                                         for c in cpus]
+
+
+def reference(cpus, sigs, hashes, voters):
+    return [cpus[0].verify_signature(s, h, v)
+            for s, h, v in zip(sigs, hashes, voters)]
+
+
+def torsion_lane(sig: bytes) -> bytes:
+    """sig + (0, 2): the order-3 component a batched-by-linearity
+    subgroup check would let through (TestSubgroupAttack)."""
+    return joracle.g1_compress(joracle.g1_add(joracle.g1_decompress(sig),
+                                              (0, 2)))
+
+
+def test_valid_and_invalid_lanes_pipelined(cpus, port):
+    """Two batches in flight: all valid, and one whose invalid lanes the
+    device masks (malformed, short, undecodable voter, order-3
+    component) so the batch relation still holds."""
+    sigs, hashes, voters = votes(cpus)
+    bad_sigs, bad_voters = list(sigs), list(voters)
+    bad_sigs[0] = b"\x00" * 48           # compressed flag missing
+    bad_sigs[1] = b"short"
+    bad_voters[3] = b"\x01" * 96         # not a pubkey encoding
+    bad_sigs[6] = torsion_lane(sigs[6])
+    r1 = port.verify_batch_async(sigs, hashes, voters)
+    r2 = port.verify_batch_async(bad_sigs, hashes, bad_voters)
+    assert r1() == [True] * N
+    got = r2()
+    assert got == reference(cpus, bad_sigs, hashes, bad_voters)
+    assert got == [False, False, True, False, True, True, False, True]
+
+
+def test_failed_relation_localizes_exactly(cpus, port):
+    """Wrong signers and a wrong-message lane break the batch relation;
+    the per-lane fallback must give the oracle's verdicts."""
+    sigs, hashes, voters = votes(cpus, b"block-hash-2")
+    sigs[4], sigs[5] = sigs[5], sigs[4]
+    sigs[2] = cpus[2].sign(sm3_hash(b"other"))
+    sigs[7] = torsion_lane(sigs[7])
+    got = port.verify_batch(sigs, hashes, voters)
+    assert got == reference(cpus, sigs, hashes, voters)
+    assert got == [True, True, False, True, False, False, True, False]
+
+
+def test_three_hash_batch(cpus, port):
+    h1, h2, h3 = (sm3_hash(m) for m in (b"y1", b"y2", b"y3"))
+    hashes = [h1, h1, h2, h2, h3, h3, h1, h2]
+    sigs = [c.sign(h) for c, h in zip(cpus, hashes)]
+    sigs[3] = cpus[3].sign(sm3_hash(b"evil"))
+    voters = [c.pub_key for c in cpus]
+    got = port.verify_batch(sigs, hashes, voters)
+    assert got == reference(cpus, sigs, hashes, voters)
+    assert got.count(False) == 1
+
+
+def test_many_hashes_split_and_threshold(cpus):
+    """More hashes than the fused ladder split into single-hash
+    sub-batches; below device_threshold the host oracle answers."""
+    p = CudaBlsCrypto(KEYS[0], device_threshold=2, device="cpu")
+    hashes = [sm3_hash(bytes([i])) for i in range(5)]
+    sigs = [c.sign(h) for c, h in zip(cpus, hashes)]
+    sigs[2] = sigs[3]
+    voters = [c.pub_key for c in cpus[:5]]
+    got = p.verify_batch(sigs, hashes, voters)
+    assert got == reference(cpus, sigs, hashes, voters)
+    assert got == [True, True, False, True, True]
+    assert p.verify_batch([], [], []) == []
+
+
+def test_pubkey_cache_from_jax(cpus):
+    """A JAX provider's host-validated cache carries over bit for bit and
+    gives the same verdicts, a known-bad key included."""
+    from consensus_overlord_tpu.crypto.tpu_provider import TpuBlsCrypto
+
+    voters = [c.pub_key for c in cpus] + [b"\x02" * 96]
+    jax_prov = TpuBlsCrypto(KEYS[0], device_threshold=10**6)
+    jax_prov._update_pubkeys_host(voters)
+    cache = pubkey_cache_from_jax(jax_prov._pk_px, jax_prov._pk_py,
+                                  jax_prov._pk_pz, jax_prov._pk_index)
+    assert cache.aff == jax_prov._pk_aff
+    p = CudaBlsCrypto(KEYS[0], device_threshold=1, device="cpu")
+    p.load_pubkey_cache(cache)
+    sigs, hashes, _ = votes(cpus, b"carried")
+    sigs = sigs + [sigs[0]]
+    hashes = hashes + [hashes[0]]
+    sigs[1] = sigs[0]
+    got = p.verify_batch(sigs, hashes, voters)
+    assert got == reference(cpus, sigs, hashes, voters)
+    assert p._pk.index == jax_prov._pk_index  # nothing was re-validated
+
+
+def test_cuda_device_without_a_card_raises():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="cuda"):
+        CudaBlsCrypto(KEYS[0])
+
+
+def test_port_imports_neither_jax_nor_the_jax_package():
+    """Importing every module of the port leaves jax and the JAX package
+    out of sys.modules, and no source file names them in an import."""
+    pkg = os.path.join(REPO, "consensus_overlord_tpu_torch")
+    modules = []
+    for root, dirs, files in os.walk(pkg):
+        dirs[:] = [d for d in dirs if d != "_build"]  # build outputs
+        for f in files:
+            if not f.endswith(".py"):
+                continue
+            path = os.path.join(root, f)
+            rel = os.path.relpath(path, REPO)[:-3].replace(os.sep, ".")
+            modules.append(rel.removesuffix(".__init__"))
+            with open(path, encoding="utf-8") as fh:
+                tree = ast.parse(fh.read())
+            for node in ast.walk(tree):
+                names = ([a.name for a in node.names]
+                         if isinstance(node, ast.Import) else
+                         [node.module or ""]
+                         if isinstance(node, ast.ImportFrom) else [])
+                for name in names:
+                    top = name.split(".")[0]
+                    assert top not in ("jax", "jaxlib",
+                                       "consensus_overlord_tpu"), (path, name)
+    code = ("import importlib, sys\n"
+            f"for m in {sorted(modules)!r}:\n"
+            "    importlib.import_module(m)\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'consensus_overlord_tpu')]\n"
+            "print(bad)\n"
+            "sys.exit(1 if bad else 0)\n")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
+@pytest.mark.slow
+def test_verify_round_matches_jax_verify_round_fn(cpus, port):
+    """The device round, output for output, against the JAX package's
+    jitted verify_round_fn at B = 8 on the same inputs (its CPU compile
+    alone takes about 97 s)."""
+    import jax
+    import jax.numpy as jnp
+
+    from consensus_overlord_tpu.crypto.tpu_provider import verify_round_fn
+    from consensus_overlord_tpu_torch.crypto.cuda_provider import (
+        verify_round)
+
+    sigs, _, voters = votes(cpus, b"round")
+    sigs[2] = torsion_lane(sigs[2])
+    (_, sx, ssign, sinf, sok, wpacked, rows,
+     _) = port._host_prep(sigs, voters, N)
+    pk = port._pk_device()
+    ins = (sx, ssign, sinf, sok, wpacked, rows) + pk
+    want = jax.jit(verify_round_fn)(*(jnp.asarray(t.numpy()) for t in ins))
+    got = verify_round(*ins)
+    for w, g in zip(want, got):
+        assert np.array_equal(np.asarray(w), g.numpy())
