@@ -1,88 +1,94 @@
 // BLS12-381 Fq limb arithmetic shared by the port's CUDA kernels
-// (fq_mul.cu, g1_point.cu).
+// (fq_mul.cu, g1_point.cu): the field tables, the build-time reduction
+// plans, and the one-thread-per-lane helpers of g1_add_kernel.
 //
 // An element is 39 loose limbs of 10 bits in int32 (each limb <= 4095),
 // the layout of consensus_overlord_tpu/ops/field.py.  Every operation
 // ends in a reduction plan: a short list of carry / fold / pad steps
 // that FieldSpec._plan computed in Python from exact per-position
-// bounds, and that proves no intermediate leaves int32.  The plans, the
-// fold rows (row k = 2^(10(39+k)) mod p in limbs) and the subtraction
-// pad reach the kernels in constant memory (fq_set_tables); the kernels
-// replay exactly those steps, so their outputs are bit-identical to the
-// plain PyTorch versions and to the JAX package.
-//
-// Accumulators are fixed-width int arrays indexed only by unrolled
-// compile-time positions, so they live in registers; the plan's step
-// kind and argument are read at run time and only gate which unrolled
-// positions take part.
+// bounds, and that proves no intermediate leaves int32.  ops/kernels.py
+// writes the plans into the generated header fq_plans.h as X-macros of
+// FQ_STEP(kind, arg, width before, width after), so each step is a
+// template instantiation that unrolls over its live positions only.
+// The fold rows (row k = 2^(10(39+k)) mod p in limbs) and the
+// subtraction pad stay data: fq_set_tables (fq_group.cuh) uploads them
+// twice, to constant memory for kernels whose threads read one address
+// at a time (one thread per lane), and to device memory for the
+// lane-group kernels, whose threads read different positions.  The
+// kernels replay exactly the planned steps, so their outputs are
+// bit-identical to the plain PyTorch versions and to the JAX package.
 #pragma once
 
 #include <cuda_runtime.h>
 
+#include "fq_plans.h"  // generated into _build/ by ops/kernels.py
+
 #define FQ_N 39
 #define FQ_BITS 10
 #define FQ_MASK ((1 << FQ_BITS) - 1)
-#define FQ_WIDE (2 * FQ_N - 1)  // positions of the product convolution
 #define FQ_MAXW 80              // widest accumulator a plan may reach
 #define FQ_FOLD_ROWS 47
-#define FQ_MAX_STEPS 16
 
-// Plan slots: the order of PLAN_NAMES in ops/kernels.py.
-enum {
-  FQ_PLAN_MUL,
-  FQ_PLAN_ADD2,
-  FQ_PLAN_SUB,
-  FQ_PLAN_SMALL2,
-  FQ_PLAN_SMALL3,
-  FQ_PLAN_SMALL8,
-  FQ_PLAN_SMALL12,
-  FQ_NUM_PLANS
-};
+static_assert(FQ_GEN_N == FQ_N && FQ_GEN_BITS == FQ_BITS,
+              "fq_plans.h was generated for another limb layout");
+static_assert(FQ_GEN_FOLD_ROWS <= FQ_FOLD_ROWS, "fold table too short");
+
 enum { FQ_STEP_PAD = 0, FQ_STEP_FOLD = 1, FQ_STEP_CARRY = 2 };
 
 // Table layout in ints (mirrored by ops/kernels.py fq_tables).
 #define FQ_TAB_FOLD 0
 #define FQ_TAB_PAD (FQ_TAB_FOLD + FQ_FOLD_ROWS * FQ_N)
-#define FQ_TAB_NSTEPS (FQ_TAB_PAD + FQ_N)
-#define FQ_TAB_STEPS (FQ_TAB_NSTEPS + FQ_NUM_PLANS)
-#define FQ_TAB_INTS (FQ_TAB_STEPS + FQ_NUM_PLANS * FQ_MAX_STEPS * 2)
+#define FQ_TAB_INTS (FQ_TAB_PAD + FQ_N)
 
 __constant__ int c_fq[FQ_TAB_INTS];
+__device__ int g_fq[FQ_TAB_INTS];
 
-// Replay plan `plan` on the accumulator v of `width` live positions.
-// Invariant: positions >= width hold 0, so a carry that extends the
-// width, or a pad step, finds zeros there.
-__device__ __forceinline__ void fq_reduce(int (&v)[FQ_MAXW], int width,
-                                          int plan) {
-  const int nsteps = c_fq[FQ_TAB_NSTEPS + plan];
-  for (int s = 0; s < nsteps; ++s) {
-    const int kind = c_fq[FQ_TAB_STEPS + (plan * FQ_MAX_STEPS + s) * 2];
-    const int arg = c_fq[FQ_TAB_STEPS + (plan * FQ_MAX_STEPS + s) * 2 + 1];
-    if (kind == FQ_STEP_FOLD) {
-      // lo += hi · fold[:arg]; the hi positions are consumed.
+// Replay plan P on the accumulator object s: one call of
+// s.step<kind, arg, width before, width after>() per planned step.
+#define FQ_STEP_CALL(kind, arg, wi, wo) \
+  s.template step<FQ_STEP_##kind, arg, wi, wo>();
+#define FQ_PLAN_CASE(NAME) \
+  if constexpr (P == FQ_PLAN_##NAME) { FQ_PLAN_##NAME##_STEPS(FQ_STEP_CALL) }
+template <int P, class S>
+__device__ __forceinline__ void fq_run_plan(S& s) {
+  FQ_PLANS(FQ_PLAN_CASE)
+}
+
+// -- one thread per lane (g1_add_kernel) -------------------------------------
+
+// One thread's accumulator of FQ_MAXW positions, indexed only by
+// compile-time positions so it lives in registers.  Invariant:
+// positions >= the live width hold 0.
+struct FqThreadAcc {
+  int (&v)[FQ_MAXW];
+
+  template <int K, int A, int WI, int WO>
+  __device__ __forceinline__ void step() {
+    if constexpr (K == FQ_STEP_FOLD) {
+      // lo += hi · fold[:A]; the hi positions are consumed.
 #pragma unroll
-      for (int r = 0; r < FQ_MAXW - FQ_N; ++r) {
-        if (r < arg) {
-          const int h = v[FQ_N + r];
+      for (int r = 0; r < A; ++r) {
+        const int h = v[FQ_N + r];
 #pragma unroll
-          for (int j = 0; j < FQ_N; ++j)
-            v[j] += h * c_fq[FQ_TAB_FOLD + r * FQ_N + j];
-          v[FQ_N + r] = 0;
-        }
+        for (int j = 0; j < FQ_N; ++j)
+          v[j] += h * c_fq[FQ_TAB_FOLD + r * FQ_N + j];
+        v[FQ_N + r] = 0;
       }
-      width = FQ_N;
-    } else if (kind == FQ_STEP_CARRY) {
-      // One parallel carry pass; arg = 1 extends the width by one
-      // position to take the top carry, else the top carry is provably 0.
-      width += arg;
+    } else if constexpr (K == FQ_STEP_CARRY) {
+      // One parallel carry pass over the WO live positions (WO = WI + 1
+      // takes the top carry; else the top carry is provably 0).
 #pragma unroll
-      for (int i = FQ_MAXW - 1; i > 0; --i)
-        if (i < width) v[i] = (v[i] & FQ_MASK) + (v[i - 1] >> FQ_BITS);
+      for (int i = WO - 1; i > 0; --i)
+        v[i] = (v[i] & FQ_MASK) + (v[i - 1] >> FQ_BITS);
       v[0] &= FQ_MASK;
-    } else {
-      width += arg;  // pad: the new positions already hold zeros
-    }
+    }  // pad: the new positions already hold zeros
   }
+};
+
+template <int P>
+__device__ __forceinline__ void fq_reduce(int (&v)[FQ_MAXW]) {
+  FqThreadAcc s{v};
+  fq_run_plan<P>(s);
 }
 
 // Loose × loose → loose: the 39×39 schoolbook convolution to 77
@@ -98,7 +104,7 @@ __device__ __forceinline__ void fq_mul_regs(int (&out)[FQ_N],
 #pragma unroll
     for (int j = 0; j < FQ_N; ++j) v[i + j] += a[i] * b[j];
   }
-  fq_reduce(v, FQ_WIDE, FQ_PLAN_MUL);
+  fq_reduce<FQ_PLAN_MUL>(v);
 #pragma unroll
   for (int j = 0; j < FQ_N; ++j) out[j] = v[j];
 }
@@ -122,7 +128,7 @@ __device__ __noinline__ void fe_add(int* out, const int* a, const int* b) {
   int v[FQ_MAXW];
 #pragma unroll
   for (int k = 0; k < FQ_MAXW; ++k) v[k] = k < FQ_N ? a[k] + b[k] : 0;
-  fq_reduce(v, FQ_N, FQ_PLAN_ADD2);
+  fq_reduce<FQ_PLAN_ADD2>(v);
 #pragma unroll
   for (int j = 0; j < FQ_N; ++j) out[j] = v[j];
 }
@@ -134,18 +140,18 @@ __device__ __noinline__ void fe_sub(int* out, const int* a, const int* b) {
 #pragma unroll
   for (int k = 0; k < FQ_MAXW; ++k)
     v[k] = k < FQ_N ? a[k] + (c_fq[FQ_TAB_PAD + k] - b[k]) : 0;
-  fq_reduce(v, FQ_N, FQ_PLAN_SUB);
+  fq_reduce<FQ_PLAN_SUB>(v);
 #pragma unroll
   for (int j = 0; j < FQ_N; ++j) out[j] = v[j];
 }
 
-// a · k for a small constant k whose bound plan is `plan`.
-__device__ __noinline__ void fe_small(int* out, const int* a, int k,
-                                     int plan) {
+// a · k for a small constant k whose bound plan is P.
+template <int P>
+__device__ __noinline__ void fe_small(int* out, const int* a, int k) {
   int v[FQ_MAXW];
 #pragma unroll
   for (int i = 0; i < FQ_MAXW; ++i) v[i] = i < FQ_N ? a[i] * k : 0;
-  fq_reduce(v, FQ_N, plan);
+  fq_reduce<P>(v);
 #pragma unroll
   for (int j = 0; j < FQ_N; ++j) out[j] = v[j];
 }
@@ -165,19 +171,4 @@ __device__ __forceinline__ void tile_store(int* dst, const int* tile,
                                            long lane0, int lanes) {
   for (int i = threadIdx.x; i < lanes * FQ_N; i += blockDim.x)
     dst[lane0 * FQ_N + i] = tile[i];
-}
-
-// C entries every library exports: table upload, its size, and error
-// text for the codes the launch functions return.
-extern "C" int fq_set_tables(const int* host_tab, int ints, int device) {
-  if (ints != FQ_TAB_INTS) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaMemcpyToSymbol(c_fq, host_tab, sizeof(int) * FQ_TAB_INTS);
-}
-
-extern "C" int fq_table_ints() { return FQ_TAB_INTS; }
-
-extern "C" const char* fq_error_string(int err) {
-  return cudaGetErrorString((cudaError_t)err);
 }

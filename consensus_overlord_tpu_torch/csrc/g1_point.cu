@@ -6,27 +6,41 @@
 // Renes–Costello–Batina 2016 Algorithm 7 with a = 0, b3 = 12) and
 // op="dbl" (body _g1_dbl_body, Algorithm 9).  Each replays the straight
 // line of ops/curve.py CurveOps.add / CurveOps.dbl op for op, with every
-// field op ending in the same planned reduction (fq_field.cuh), so the
+// field op ending in the same planned reduction (fq_plans.h), so the
 // outputs are bit-identical to the generic formulas over the plain field
 // (bls12381_groups.G1.add_plain / dbl_plain).
 //
-// What bounds it on the H100: an add reads six and writes three (B, 39)
+// What bounds them on the H100: an add reads six and writes three (B, 39)
 // int32 coordinates (1,404 bytes a lane) and does 12 field multiplies
-// plus 20 add/sub/small-multiple reductions — about 40,000 int32
-// multiply-adds a lane, some 60 operations per byte: the multiply-adds
-// bound it (a doubling: 8 multiplies, 936 bytes, the same verdict).
-// The design keeps every intermediate off device memory: one thread per
-// lane, the coordinates and temporaries in thread-private arrays, each
-// field op an out-of-line function whose accumulator sits in registers
-// and whose fold rows are constant-memory operands.  Lanes are staged
-// through a shared-memory tile one coordinate at a time so the row-major
-// (B, 39) global accesses stay coalesced.  At B = 8192 the grid holds
-// two warps per SM, so the kernel is latency-bound; more threads per
-// lane is the next step.
+// plus 20 add/sub/small-multiple reductions: about 39,900 integer
+// multiply-adds and 9,600 carry masks and shift-adds a lane; a doubling
+// 8 multiplies, 936 bytes, about 26,100 and 5,400.  At Hopper's 64
+// IMADs per clock per SM the multiply-adds bound both (chip_smoke.py
+// `bound`).
+//
+// g1_add_kernel keeps the first design: one thread per lane, the
+// coordinates and temporaries in thread-private arrays, each field op an
+// out-of-line function whose accumulator sits in registers and whose
+// fold rows are constant-memory operands, lanes staged through a
+// shared-memory tile.  At B = 8192 that is two warps per SM:
+// latency-bound.
+//
+// g1_dbl_kernel runs on the lane-group field core (fq_group.cuh): G = 16
+// threads per lane (64 threads a block, 4 lanes), the three coordinates
+// and every temporary as register slices of L = 3 limbs a thread, each
+// field op inlined and replaying its own build-time plan.  The
+// independent products of a stage run as one interleaved multiply (Y²,
+// YZ, Z², XY; then two pairs), so their chains overlap and share the
+// fold-row loads.  It reads and writes each thread's limbs of the
+// (B, 39) rows directly.  G = 16 was the fastest of 4, 8 and 16 on the
+// H100 (PERF.md).  117 registers, no spills (ptxas -v, printed by
+// chip_smoke.py).
 
-#include "fq_field.cuh"
+#include "fq_group.cuh"
 
 #define PT_BLOCK 64
+#define DBL_THREADS 64
+#define DBL_G 16  // threads per lane
 // 3·b for G1's b = 4.  The SMALL12 plan's bounds hold only for this value.
 #define G1_B3 12
 
@@ -93,11 +107,11 @@ __global__ void __launch_bounds__(PT_BLOCK)
   fe_mul(t5, u, w);
   fe_add(u, t0, t2);
   fe_sub(t5, t5, u);  // x1z2 + x2z1
-  fe_small(three_t0, t0, 3, FQ_PLAN_SMALL3);
-  fe_small(b3_t2, t2, G1_B3, FQ_PLAN_SMALL12);
+  fe_small<FQ_PLAN_SMALL3>(three_t0, t0, 3);
+  fe_small<FQ_PLAN_SMALL12>(b3_t2, t2, G1_B3);
   fe_add(z3, t1, b3_t2);
   fe_sub(t1, t1, b3_t2);
-  fe_small(y3, t5, G1_B3, FQ_PLAN_SMALL12);
+  fe_small<FQ_PLAN_SMALL12>(y3, t5, G1_B3);
   fe_mul(u, t3, t1);
   fe_mul(w, t4, y3);
   fe_sub(x3, u, w);
@@ -113,40 +127,48 @@ __global__ void __launch_bounds__(PT_BLOCK)
   stage_out(tile, oz, lane0, lanes, live, z3);
 }
 
-__global__ void __launch_bounds__(PT_BLOCK)
+__global__ void __launch_bounds__(DBL_THREADS)
     g1_dbl_kernel(int* ox, int* oy, int* oz, const int* px, const int* py,
                   const int* pz, int batch) {
-  __shared__ int tile[PT_BLOCK * FQ_N];
-  const long lane0 = (long)blockIdx.x * PT_BLOCK;
-  const int lanes = min(PT_BLOCK, batch - (int)lane0);
-  const bool live = threadIdx.x < lanes;
-  int x[FQ_N], y[FQ_N], z[FQ_N];
-  int t0[FQ_N], t1[FQ_N], t2[FQ_N], u[FQ_N];
-  int x3[FQ_N], y3[FQ_N], z3[FQ_N];
+  constexpr int G = DBL_G;
+  using F = Fe<G>;
+  constexpr int LANES = DBL_THREADS / G;
+  constexpr int NP = 4;  // products one multiply interleaves
+  __shared__ __align__(16) int scratch[LANES * NP * FqGroup<G>::LANE_INTS];
+  FqLane<G> ln;
+  fq_lane_init<G, NP>(ln, scratch);
+  const long lane = (long)blockIdx.x * LANES + threadIdx.x / G;
+  F x, y, z, t0, t1, zz, xy;
+  fq_load(x, px, lane, batch, ln.t);
+  fq_load(y, py, lane, batch, ln.t);
+  fq_load(z, pz, lane, batch, ln.t);
 
-  stage_in(tile, px, lane0, lanes, live, x);
-  stage_in(tile, py, lane0, lanes, live, y);
-  stage_in(tile, pz, lane0, lanes, live, z);
+  {  // Y², YZ, Z², XY
+    F a[NP] = {y, y, z, x}, b[NP] = {y, z, z, y}, r[NP];
+    fq_mul_n<G, NP>(ln, r, a, b);
+    t0 = r[0], t1 = r[1], zz = r[2], xy = r[3];
+  }
+  F z3 = fq_small<FQ_PLAN_SMALL8>(ln, t0, 8);      // 8Y²
+  F t2 = fq_small<FQ_PLAN_SMALL12>(ln, zz, G1_B3);  // 3bZ²
+  F x3;
+  {
+    F a[2] = {t2, t1}, b[2] = {z3, z3}, r[2];
+    fq_mul_n<G, 2>(ln, r, a, b);
+    x3 = r[0];  // 24bY²Z²
+    z3 = r[1];  // 8Y³Z
+  }
+  F y3 = fq_add(ln, t0, t2);                                   // Y² + 3bZ²
+  t0 = fq_sub(ln, t0, fq_small<FQ_PLAN_SMALL3>(ln, t2, 3));  // Y² − 9bZ²
+  {
+    F a[2] = {t0, t0}, b[2] = {y3, xy}, r[2];
+    fq_mul_n<G, 2>(ln, r, a, b);
+    y3 = fq_add(ln, r[0], x3);                   // (Y²−9bZ²)(Y²+3bZ²) + 24bY²Z²
+    x3 = fq_small<FQ_PLAN_SMALL2>(ln, r[1], 2);  // 2XY(Y² − 9bZ²)
+  }
 
-  fe_mul(t0, y, y);                         // Y²
-  fe_small(z3, t0, 8, FQ_PLAN_SMALL8);      // 8Y²
-  fe_mul(t1, y, z);                         // YZ
-  fe_mul(u, z, z);
-  fe_small(t2, u, G1_B3, FQ_PLAN_SMALL12);  // 3bZ²
-  fe_mul(x3, t2, z3);                       // 24bY²Z²
-  fe_add(y3, t0, t2);                       // Y² + 3bZ²
-  fe_mul(z3, t1, z3);                       // 8Y³Z
-  fe_small(u, t2, 3, FQ_PLAN_SMALL3);
-  fe_sub(t0, t0, u);                        // Y² − 9bZ²
-  fe_mul(u, t0, y3);
-  fe_add(y3, u, x3);
-  fe_mul(u, x, y);
-  fe_mul(u, t0, u);
-  fe_small(x3, u, 2, FQ_PLAN_SMALL2);       // 2XY(Y² − 9bZ²)
-
-  stage_out(tile, ox, lane0, lanes, live, x3);
-  stage_out(tile, oy, lane0, lanes, live, y3);
-  stage_out(tile, oz, lane0, lanes, live, z3);
+  fq_store(ox, x3, lane, batch, ln.t);
+  fq_store(oy, y3, lane, batch, ln.t);
+  fq_store(oz, z3, lane, batch, ln.t);
 }
 
 extern "C" int g1_add_launch(void* ox, void* oy, void* oz, const void* px,
@@ -167,8 +189,9 @@ extern "C" int g1_dbl_launch(void* ox, void* oy, void* oz, const void* px,
                              int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  const int blocks = (batch + PT_BLOCK - 1) / PT_BLOCK;
-  g1_dbl_kernel<<<blocks, PT_BLOCK, 0, (cudaStream_t)stream>>>(
+  constexpr int LANES = DBL_THREADS / DBL_G;
+  const int blocks = (batch + LANES - 1) / LANES;
+  g1_dbl_kernel<<<blocks, DBL_THREADS, 0, (cudaStream_t)stream>>>(
       (int*)ox, (int*)oy, (int*)oz, (const int*)px, (const int*)py,
       (const int*)pz, batch);
   return (int)cudaGetLastError();

@@ -1,0 +1,86 @@
+#!/usr/bin/env python3
+"""Time the port's CUDA kernels of several checkouts on one card, in turn.
+
+    python3 scripts/torch_kernels_ab.py PARENT . . PARENT
+
+Each argument is the root of a checkout holding consensus_overlord_tpu_torch/;
+each runs in its own process (the packages share one name), builds its
+kernels from its own sources, and prints one JSON line: the device time
+per launch of fq_mul (B = 8192 and 131072 lanes, the main path's heaviest
+launch size), g1_add and g1_dbl (B = 8192), from CUDA events over 100
+back-to-back launches held behind a spin kernel so that the host's issue
+rate does not enter.  Inputs are random loose limbs from --seed (the point
+formulas are polynomials, so any loose coordinates time them).  Giving
+the roots as parent, change, change, parent compares two versions on one
+card within one run.  Needs a GPU.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+
+SIZES = {"fq_mul": (8192, 131072), "g1_add": (8192,), "g1_dbl": (8192,)}
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def worker(root: str, seed: int, clock_hz: float) -> dict:
+    sys.path.insert(0, REPO)
+    from chip_smoke import time_ms  # this checkout's timing, for every root
+    sys.path.insert(0, os.path.abspath(root))
+    import numpy as np
+    import torch
+    from consensus_overlord_tpu_torch.ops import bls12381_groups as dev
+    from consensus_overlord_tpu_torch.ops import kernels
+
+    fq = dev.FQ
+    kernels.build_all()
+    rng = np.random.default_rng(seed)
+
+    def loose(lanes):
+        return torch.from_numpy(rng.integers(
+            0, fq.loose_max + 1, size=(lanes, fq.n),
+            dtype=np.int32)).cuda()
+
+    out = {"root": root}
+    for name, sizes in SIZES.items():
+        for lanes in sizes:
+            a = tuple(loose(lanes) for _ in range(3))
+            b = tuple(loose(lanes) for _ in range(3))
+            run = {"fq_mul": lambda: kernels.fq_mul(fq, a[0], b[0]),
+                   "g1_add": lambda: kernels.g1_add(fq, a, b),
+                   "g1_dbl": lambda: kernels.g1_dbl(fq, a)}[name]
+            out[f"{name}@{lanes}"] = time_ms(torch, run, 100, clock_hz)
+    return out
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("roots", nargs="+")
+    ap.add_argument("--seed", type=int, default=11)
+    ap.add_argument("--worker", action="store_true", help=argparse.SUPPRESS)
+    ap.add_argument("--clock-hz", type=float, default=0.0,
+                    help=argparse.SUPPRESS)
+    args = ap.parse_args(argv)
+    if args.worker:
+        print(json.dumps(worker(args.roots[0], args.seed, args.clock_hz)),
+              flush=True)
+        return 0
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit,clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    clock_hz = float(smi.split(",")[2]) * 1e6
+    print(json.dumps({"card": smi}), flush=True)
+    for root in args.roots:
+        subprocess.run([sys.executable, os.path.abspath(__file__), root,
+                        "--worker", "--seed", str(args.seed),
+                        "--clock-hz", str(clock_hz)], check=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

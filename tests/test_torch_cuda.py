@@ -53,6 +53,57 @@ def test_g1_kernels_match_plain_and_oracle(cuda):
                                        for a, b in zip(p_aff, q_aff)]
 
 
+#: Ragged batch sizes: one lane, a partial warp, one lane short of four
+#: lane groups of each kernel's default size, one either side of 8192.
+RAGGED = (1, 3, 4 * kernels.FQ_MUL_GROUP - 1, 4 * kernels.G1_DBL_GROUP - 1,
+          8191, 8193)
+
+
+def _loose(rng, batch):
+    """Random loose limbs, with every 7th lane at the loose bound."""
+    x = rng.integers(0, dev.FQ.loose_max + 1, size=(batch, dev.FQ.n),
+                     dtype=np.int32)
+    x[::7] = dev.FQ.loose_max
+    return torch.from_numpy(x)
+
+
+@pytest.mark.parametrize("batch", RAGGED)
+def test_fq_mul_matches_plain_at_ragged_sizes(cuda, batch):
+    rng = np.random.default_rng(batch)
+    x, y = _loose(rng, batch).to(cuda), _loose(rng, batch).to(cuda)
+    y[1::5] = dev.FQ.loose_max
+    assert torch.equal(kernels.fq_mul(dev.FQ, x, y), dev.FQ.mul_plain(x, y))
+
+
+_G1_CACHE = {}
+
+
+def _g1_lanes(batch, device):
+    """Random G1 points tiled over the batch, every 5th lane the
+    identity."""
+    if "pts" not in _G1_CACHE:
+        rng = np.random.default_rng(61)
+        _G1_CACHE["pts"] = [oracle.g1_mul(oracle.G1_GEN,
+                                          int(rng.integers(1, 2**62)))
+                            for _ in range(24)]
+    pts = _G1_CACHE["pts"]
+    lanes = [None if i % 5 == 2 else pts[i % len(pts)]
+             for i in range(batch)]
+    return dev.g1_from_oracle(lanes, device)
+
+
+@pytest.mark.parametrize("batch", RAGGED)
+def test_g1_dbl_matches_plain_at_ragged_sizes(cuda, batch):
+    rng = np.random.default_rng(batch + 1)
+    points = _g1_lanes(batch, cuda)
+    # Off-curve coordinates with limbs at the loose bound: the formula is
+    # a polynomial, so kernel and plain version agree on any loose input.
+    loose = dev.Point(*(_loose(rng, batch).to(cuda) for _ in range(3)))
+    for p in (points, loose):
+        got, want = kernels.g1_dbl(dev.FQ, tuple(p)), dev.G1.dbl_plain(p)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
 def test_kernel_wrapper_rejects_bad_operands(cuda):
     x = torch.zeros((8, dev.FQ.n), dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError, match="int32"):
