@@ -27,11 +27,11 @@ round then reports the device-busy time by kernel.  Then each kernel is
 held against its plain version (tolerance 0: integer arithmetic, torch.equal) and
 timed with CUDA events beside its plain version and the least time the
 card could take for the same work, at B = 8192 and at its most frequent
-and its lane-heaviest launch size in a warm round.  Each phase prints
-one JSON line; the kernels line, the card's name and power limit, and
-the contract line close the output.  Any failure exits non-zero.  Exits
-2 without a result when no GPU is visible; fixtures are cached under
-.smoke_fixtures/.
+and its lane-heaviest launch size in a warm round (g1_add at every size
+of the round).  Each phase prints one JSON line; the kernels line, the
+card's name and power limit, and the contract line close the output.
+Any failure exits non-zero.  Exits 2 without a result when no GPU is
+visible; fixtures are cached under .smoke_fixtures/.
 """
 
 from __future__ import annotations
@@ -476,7 +476,7 @@ def main(argv=None) -> int:
           "lane_ops": lane_ops(BLS12_381_FQ)})
     ptxas = ptxas_report(kernels)
     emit({"phase": "ptxas", "kernels": ptxas})
-    for name in ("fq_mul_kernel", "g1_dbl_kernel"):
+    for name in ("fq_mul_kernel", "g1_add_kernel", "g1_dbl_kernel"):
         if name not in ptxas or ptxas[name].get("spill_stores", 1):
             fail(f"{name}: spills or missing from the ptxas report")
 
@@ -500,11 +500,13 @@ def main(argv=None) -> int:
 
     emit(trace_round(torch, prov, sigs[0], hashes[0], pks))
     # Each kernel's most frequent lane count in a warm round, and the one
-    # that carries the most lanes.
+    # that carries the most lanes; g1_add at every size of the round (its
+    # tree sum launches once at each power of two below the batch).
     warm = phase_sizes["single_hash"]
     frequent = {k: sorted({max(v, key=lambda b: (v[b], b)),
                            max(v, key=lambda b: (b * v[b], b))})
                 for k, v in warm.items()}
+    frequent["g1_add"] = sorted(warm["g1_add"])
     operands = kernel_operands(torch, args.seed)
     rows, sized = kernel_checks(torch, totals, operands, card, frequent)
     emit({"phase": "kernels_at_main_path_sizes", "kernels": sized})

@@ -1,8 +1,9 @@
-// The lane-group Fq core of the port's redesigned kernels (fq_mul.cu,
-// g1_point.cu g1_dbl_kernel): G threads of one warp (G = 8 for fq_mul,
-// 16 for g1_dbl) compute one lane together, so a batch of B lanes runs B·G threads and
-// each thread's dependent chain is about G times shorter than with one
-// thread per lane.
+// The lane-group Fq core, the one field core of the port's kernels
+// (fq_mul.cu; g1_point.cu g1_add_kernel and g1_dbl_kernel): G threads of
+// one warp compute one lane together (G is a build-time constant per
+// kernel: MUL_G, ADD_G, DBL_G), so a batch of B lanes runs B·G threads
+// and each thread's dependent chain is about G times shorter than with
+// one thread per lane.
 //
 // Layout.  Thread t of a group owns L = ceil(40 / G) slots of the lane:
 // element limbs and the low part of a wide accumulator at positions
@@ -11,14 +12,14 @@
 // slots only, so nothing lives in local memory.
 //
 // Multiply.  The operands' slices go to a per-lane scratch in shared
-// memory.  Thread t sums the columns of its own slots ("interleaved":
-// tL+s and W+tL+s), so no shuffle is needed before the plan; it walks
-// the rows in an order rotated by tL, which makes every b position it
-// reads a compile-time constant and puts each product in its low or
-// high column by a rule fixed per block of L rows (fq_conv_rotated):
-// W·L multiply-adds a thread, all terms of the 1,521 once.  (Summing
-// contiguous columns instead and shuffling the sums to their owners was
-// 1.4–1.6x slower at every G on the H100: PERF.md.)
+// memory (FqGroup::stride).  Thread t sums the columns of its own slots
+// ("interleaved": tL+s and W+tL+s), so no shuffle is needed before the
+// plan; it walks the rows in an order rotated by tL, which makes every
+// b position it reads a compile-time constant and puts each product in
+// its low or high column by a rule fixed per block of L rows
+// (fq_conv_rotated): W·L multiply-adds a thread, all terms of the 1,521
+// once.  (Summing contiguous columns instead and shuffling the sums to
+// their owners was 1.4–1.6x slower at every G on the H100: PERF.md.)
 //
 // Reduction.  The plan's steps (fq_plans.h) run as templates: a carry
 // step is one pass over the slots plus one __shfl_sync of each part's
@@ -51,6 +52,13 @@ struct FqGroup {
   static constexpr int FOLD_INT4 = ROWS * C * G;    // fold-row layout
   static_assert(2 * W >= FQ_MAXW, "the accumulator cannot hold a plan");
   static_assert(W % 4 == 0, "operand scratch must stay int4-aligned");
+  // Shared ints a lane's scratch of np products takes: np · LANE_INTS
+  // padded to an odd multiple of G, so the 32 / G lanes of a warp start
+  // G banks apart and their threads' slot reads (stride L, odd) fall on
+  // 32 different banks.  A multiple of 4: int4-aligned.
+  __host__ __device__ static constexpr int stride(int np) {
+    return np * LANE_INTS + (3 * G - np * LANE_INTS % (2 * G)) % (2 * G);
+  }
 };
 
 // One element: this thread's L slots of a lane.
@@ -106,7 +114,7 @@ __device__ __forceinline__ void fq_lane_init(FqLane<G>& ln, int* scratch) {
   using Gp = FqGroup<G>;
   ln.t = threadIdx.x & (G - 1);
   ln.fold = fq_fold4<G>();
-  ln.a_s = scratch + (threadIdx.x / G) * NP * Gp::LANE_INTS;
+  ln.a_s = scratch + (threadIdx.x / G) * Gp::stride(NP);
   ln.b_s = ln.a_s + NP * Gp::W;
 #pragma unroll
   for (int s = 0; s < Gp::L; ++s) {
@@ -378,14 +386,12 @@ __device__ __forceinline__ Fe<G> fq_small(const FqLane<G>& ln,
   return fq_reduce_lo<P>(ln, v);
 }
 
-// C entries every library exports: table upload (constant memory, device
-// memory, and each group size's fold-row layout), its size, and error
-// text for the codes the launch functions return.
+// C entries every library exports: table upload (the fold rows and the
+// pad to device memory, then each group size's fold-row layout), its
+// size, and error text for the codes the launch functions return.
 extern "C" int fq_set_tables(const int* host_tab, int ints, int device) {
   if (ints != FQ_TAB_INTS) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  err = cudaMemcpyToSymbol(c_fq, host_tab, sizeof(int) * FQ_TAB_INTS);
   if (err != cudaSuccess) return (int)err;
   err = cudaMemcpyToSymbol(g_fq, host_tab, sizeof(int) * FQ_TAB_INTS);
   if (err != cudaSuccess) return (int)err;

@@ -38,7 +38,7 @@ __global__ void __launch_bounds__(MUL_THREADS)
     fq_mul_kernel(int* out, const int* x, const int* y, int batch) {
   using Gp = FqGroup<MUL_G>;
   constexpr int LANES = MUL_THREADS / MUL_G;
-  __shared__ __align__(16) int scratch[LANES * Gp::LANE_INTS];
+  __shared__ __align__(16) int scratch[LANES * Gp::stride(1)];
   FqLane<MUL_G> ln;
   fq_lane_init<MUL_G, 1>(ln, scratch);
   const long lane = (long)blockIdx.x * LANES + threadIdx.x / MUL_G;

@@ -18,113 +18,77 @@
 // IMADs per clock per SM the multiply-adds bound both (chip_smoke.py
 // `bound`).
 //
-// g1_add_kernel keeps the first design: one thread per lane, the
-// coordinates and temporaries in thread-private arrays, each field op an
-// out-of-line function whose accumulator sits in registers and whose
-// fold rows are constant-memory operands, lanes staged through a
-// shared-memory tile.  At B = 8192 that is two warps per SM:
-// latency-bound.
-//
-// g1_dbl_kernel runs on the lane-group field core (fq_group.cuh): G = 16
-// threads per lane (64 threads a block, 4 lanes), the three coordinates
-// and every temporary as register slices of L = 3 limbs a thread, each
-// field op inlined and replaying its own build-time plan.  The
-// independent products of a stage run as one interleaved multiply (Y²,
-// YZ, Z², XY; then two pairs), so their chains overlap and share the
-// fold-row loads.  It reads and writes each thread's limbs of the
-// (B, 39) rows directly.  G = 16 was the fastest of 4, 8 and 16 on the
-// H100 (PERF.md).  117 registers, no spills (ptxas -v, printed by
-// chip_smoke.py).
+// Both run on the lane-group field core (fq_group.cuh): G threads per
+// lane (ADD_G, DBL_G; 64 threads a block), the coordinates and every
+// temporary as register slices of L limbs a thread, each field op inlined
+// and replaying its own build-time plan, each thread reading and writing
+// its own limbs of the (B, 39) rows directly.  The independent products
+// of a stage run as one interleaved multiply, so their chains overlap and
+// share the fold-row loads: the add's twelve in two stages of six
+// (x1x2, y1y2, z1z2 and the three cross sums; then the six of the
+// output), the doubling's eight in stages of four, two and two.  G = 16
+// was the fastest of 8 and 16 for both on the H100, and for the add one
+// multiply of six beat two of three (PERF.md): at B = 8192 the add takes
+// 0.073 ms against a 0.0196 ms bound, the doubling 0.045 against 0.0128
+// (NVIDIA H100 80GB HBM3, 700 W).  ptxas -v, printed by chip_smoke.py:
+// g1_add_kernel 128 registers, g1_dbl_kernel 117, no spills.
 
 #include "fq_group.cuh"
 
-#define PT_BLOCK 64
+#define ADD_THREADS 64
+#define ADD_G 16  // threads per lane
 #define DBL_THREADS 64
 #define DBL_G 16  // threads per lane
 // 3·b for G1's b = 4.  The SMALL12 plan's bounds hold only for this value.
 #define G1_B3 12
 
-// Load one coordinate of the block's lanes into this thread's array.
-__device__ __forceinline__ void stage_in(int* tile, const int* src,
-                                         long lane0, int lanes, bool live,
-                                         int* dst) {
-  __syncthreads();  // the tile is free
-  tile_load(tile, src, lane0, lanes);
-  __syncthreads();
-#pragma unroll
-  for (int j = 0; j < FQ_N; ++j)
-    dst[j] = live ? tile[threadIdx.x * FQ_N + j] : 0;
-}
-
-// Store one coordinate of the block's lanes from this thread's array.
-__device__ __forceinline__ void stage_out(int* tile, int* dst, long lane0,
-                                          int lanes, bool live,
-                                          const int* src) {
-  __syncthreads();
-  if (live) {
-#pragma unroll
-    for (int j = 0; j < FQ_N; ++j) tile[threadIdx.x * FQ_N + j] = src[j];
-  }
-  __syncthreads();
-  tile_store(dst, tile, lane0, lanes);
-}
-
-__global__ void __launch_bounds__(PT_BLOCK)
+__global__ void __launch_bounds__(ADD_THREADS)
     g1_add_kernel(int* ox, int* oy, int* oz, const int* px, const int* py,
                   const int* pz, const int* qx, const int* qy,
                   const int* qz, int batch) {
-  __shared__ int tile[PT_BLOCK * FQ_N];
-  const long lane0 = (long)blockIdx.x * PT_BLOCK;
-  const int lanes = min(PT_BLOCK, batch - (int)lane0);
-  const bool live = threadIdx.x < lanes;
-  int x1[FQ_N], y1[FQ_N], z1[FQ_N], x2[FQ_N], y2[FQ_N], z2[FQ_N];
-  int t0[FQ_N], t1[FQ_N], t2[FQ_N], t3[FQ_N], t4[FQ_N], t5[FQ_N];
-  int u[FQ_N], w[FQ_N], three_t0[FQ_N], b3_t2[FQ_N];
-  int x3[FQ_N], y3[FQ_N], z3[FQ_N];
+  constexpr int G = ADD_G;
+  using F = Fe<G>;
+  constexpr int LANES = ADD_THREADS / G;
+  constexpr int NP = 6;  // products one multiply interleaves: a stage
+  __shared__ __align__(16) int scratch[LANES * FqGroup<G>::stride(NP)];
+  FqLane<G> ln;
+  fq_lane_init<G, NP>(ln, scratch);
+  const long lane = (long)blockIdx.x * LANES + threadIdx.x / G;
+  F x1, y1, z1, x2, y2, z2;
+  fq_load(x1, px, lane, batch, ln.t);
+  fq_load(y1, py, lane, batch, ln.t);
+  fq_load(z1, pz, lane, batch, ln.t);
+  fq_load(x2, qx, lane, batch, ln.t);
+  fq_load(y2, qy, lane, batch, ln.t);
+  fq_load(z2, qz, lane, batch, ln.t);
 
-  stage_in(tile, px, lane0, lanes, live, x1);
-  stage_in(tile, py, lane0, lanes, live, y1);
-  stage_in(tile, pz, lane0, lanes, live, z1);
-  stage_in(tile, qx, lane0, lanes, live, x2);
-  stage_in(tile, qy, lane0, lanes, live, y2);
-  stage_in(tile, qz, lane0, lanes, live, z2);
-
-  fe_mul(t0, x1, x2);
-  fe_mul(t1, y1, y2);
-  fe_mul(t2, z1, z2);
-  fe_add(u, x1, y1);
-  fe_add(w, x2, y2);
-  fe_mul(t3, u, w);
-  fe_add(u, t0, t1);
-  fe_sub(t3, t3, u);  // x1y2 + x2y1
-  fe_add(u, y1, z1);
-  fe_add(w, y2, z2);
-  fe_mul(t4, u, w);
-  fe_add(u, t1, t2);
-  fe_sub(t4, t4, u);  // y1z2 + y2z1
-  fe_add(u, x1, z1);
-  fe_add(w, x2, z2);
-  fe_mul(t5, u, w);
-  fe_add(u, t0, t2);
-  fe_sub(t5, t5, u);  // x1z2 + x2z1
-  fe_small<FQ_PLAN_SMALL3>(three_t0, t0, 3);
-  fe_small<FQ_PLAN_SMALL12>(b3_t2, t2, G1_B3);
-  fe_add(z3, t1, b3_t2);
-  fe_sub(t1, t1, b3_t2);
-  fe_small<FQ_PLAN_SMALL12>(y3, t5, G1_B3);
-  fe_mul(u, t3, t1);
-  fe_mul(w, t4, y3);
-  fe_sub(x3, u, w);
-  fe_mul(u, t1, z3);
-  fe_mul(w, y3, three_t0);
-  fe_add(y3, u, w);
-  fe_mul(u, z3, t4);
-  fe_mul(w, three_t0, t3);
-  fe_add(z3, u, w);
-
-  stage_out(tile, ox, lane0, lanes, live, x3);
-  stage_out(tile, oy, lane0, lanes, live, y3);
-  stage_out(tile, oz, lane0, lanes, live, z3);
+  F t0, t1, t2, t3, t4, t5;
+  {  // x1x2, y1y2, z1z2, (x1+y1)(x2+y2), (y1+z1)(y2+z2), (x1+z1)(x2+z2)
+    F a[6] = {x1, y1, z1, fq_add(ln, x1, y1), fq_add(ln, y1, z1),
+              fq_add(ln, x1, z1)};
+    F b[6] = {x2, y2, z2, fq_add(ln, x2, y2), fq_add(ln, y2, z2),
+              fq_add(ln, x2, z2)};
+    F r[6];
+    fq_mul_n<G, NP>(ln, r, a, b);
+    t0 = r[0], t1 = r[1], t2 = r[2];
+    t3 = fq_sub(ln, r[3], fq_add(ln, t0, t1));  // x1y2 + x2y1
+    t4 = fq_sub(ln, r[4], fq_add(ln, t1, t2));  // y1z2 + y2z1
+    t5 = fq_sub(ln, r[5], fq_add(ln, t0, t2));  // x1z2 + x2z1
+  }
+  const F three_t0 = fq_small<FQ_PLAN_SMALL3>(ln, t0, 3);
+  const F b3_t2 = fq_small<FQ_PLAN_SMALL12>(ln, t2, G1_B3);
+  const F y3 = fq_small<FQ_PLAN_SMALL12>(ln, t5, G1_B3);
+  const F z3 = fq_add(ln, t1, b3_t2);
+  t1 = fq_sub(ln, t1, b3_t2);
+  {
+    F a[6] = {t3, t4, t1, y3, z3, three_t0};
+    F b[6] = {t1, y3, z3, three_t0, t4, t3};
+    F r[6];
+    fq_mul_n<G, NP>(ln, r, a, b);
+    fq_store(ox, fq_sub(ln, r[0], r[1]), lane, batch, ln.t);
+    fq_store(oy, fq_add(ln, r[2], r[3]), lane, batch, ln.t);
+    fq_store(oz, fq_add(ln, r[4], r[5]), lane, batch, ln.t);
+  }
 }
 
 __global__ void __launch_bounds__(DBL_THREADS)
@@ -134,7 +98,7 @@ __global__ void __launch_bounds__(DBL_THREADS)
   using F = Fe<G>;
   constexpr int LANES = DBL_THREADS / G;
   constexpr int NP = 4;  // products one multiply interleaves
-  __shared__ __align__(16) int scratch[LANES * NP * FqGroup<G>::LANE_INTS];
+  __shared__ __align__(16) int scratch[LANES * FqGroup<G>::stride(NP)];
   FqLane<G> ln;
   fq_lane_init<G, NP>(ln, scratch);
   const long lane = (long)blockIdx.x * LANES + threadIdx.x / G;
@@ -177,8 +141,9 @@ extern "C" int g1_add_launch(void* ox, void* oy, void* oz, const void* px,
                              int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  const int blocks = (batch + PT_BLOCK - 1) / PT_BLOCK;
-  g1_add_kernel<<<blocks, PT_BLOCK, 0, (cudaStream_t)stream>>>(
+  constexpr int LANES = ADD_THREADS / ADD_G;
+  const int blocks = (batch + LANES - 1) / LANES;
+  g1_add_kernel<<<blocks, ADD_THREADS, 0, (cudaStream_t)stream>>>(
       (int*)ox, (int*)oy, (int*)oz, (const int*)px, (const int*)py,
       (const int*)pz, (const int*)qx, (const int*)qy, (const int*)qz, batch);
   return (int)cudaGetLastError();

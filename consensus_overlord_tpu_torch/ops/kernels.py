@@ -55,12 +55,12 @@ FQ_FOLD_ROWS = 47
 #: input bounds: plan_bounds).
 PLAN_NAMES = ("mul", "add2", "sub", "small2", "small3", "small8", "small12")
 
-#: Threads per lane ("lane group") of the fq_mul and g1_dbl kernels,
-#: fixed at build time (MUL_G in csrc/fq_mul.cu, DBL_G in
-#: csrc/g1_point.cu).
+#: Threads per lane ("lane group") of each kernel, fixed at build time
+#: (MUL_G in csrc/fq_mul.cu, ADD_G and DBL_G in csrc/g1_point.cu).
 FQ_MUL_GROUP = 8
+G1_ADD_GROUP = 16
 G1_DBL_GROUP = 16
-GROUP_SIZES = (FQ_MUL_GROUP, G1_DBL_GROUP)
+GROUP_SIZES = tuple(sorted({FQ_MUL_GROUP, G1_ADD_GROUP, G1_DBL_GROUP}))
 
 
 class Kernel:

@@ -7,12 +7,13 @@ Each argument is the root of a checkout holding consensus_overlord_tpu_torch/;
 each runs in its own process (the packages share one name), builds its
 kernels from its own sources, and prints one JSON line: the device time
 per launch of fq_mul (B = 8192 and 131072 lanes, the main path's heaviest
-launch size), g1_add and g1_dbl (B = 8192), from CUDA events over 100
-back-to-back launches held behind a spin kernel so that the host's issue
-rate does not enter.  Inputs are random loose limbs from --seed (the point
-formulas are polynomials, so any loose coordinates time them).  Giving
-the roots as parent, change, change, parent compares two versions on one
-card within one run.  Needs a GPU.
+launch size), g1_add (B = 8192 and tree-sum sizes down to one lane) and
+g1_dbl (B = 8192), from CUDA events over 100 back-to-back launches held
+behind a spin kernel so that the host's issue rate does not enter, and
+ptxas's registers and spills of each kernel.  Inputs are random loose
+limbs from --seed (the point formulas are polynomials, so any loose
+coordinates time them).  Giving the roots as parent, change, change,
+parent compares two versions on one card within one run.  Needs a GPU.
 """
 
 from __future__ import annotations
@@ -23,13 +24,15 @@ import os
 import subprocess
 import sys
 
-SIZES = {"fq_mul": (8192, 131072), "g1_add": (8192,), "g1_dbl": (8192,)}
+SIZES = {"fq_mul": (8192, 131072), "g1_add": (1, 16, 256, 4096, 8192),
+         "g1_dbl": (8192,)}
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def worker(root: str, seed: int, clock_hz: float) -> dict:
     sys.path.insert(0, REPO)
-    from chip_smoke import time_ms  # this checkout's timing, for every root
+    # This checkout's timing and ptxas reading, for every root.
+    from chip_smoke import ptxas_report, time_ms
     sys.path.insert(0, os.path.abspath(root))
     import numpy as np
     import torch
@@ -45,7 +48,7 @@ def worker(root: str, seed: int, clock_hz: float) -> dict:
             0, fq.loose_max + 1, size=(lanes, fq.n),
             dtype=np.int32)).cuda()
 
-    out = {"root": root}
+    out = {"root": root, "ptxas": ptxas_report(kernels)}
     for name, sizes in SIZES.items():
         for lanes in sizes:
             a = tuple(loose(lanes) for _ in range(3))

@@ -54,9 +54,8 @@ def test_g1_kernels_match_plain_and_oracle(cuda):
 
 
 #: Ragged batch sizes: one lane, a partial warp, one lane short of four
-#: lane groups of each kernel's default size, one either side of 8192.
-RAGGED = (1, 3, 4 * kernels.FQ_MUL_GROUP - 1, 4 * kernels.G1_DBL_GROUP - 1,
-          8191, 8193)
+#: lane groups of each kernel's size, one either side of 8192.
+RAGGED = (1, 3, *(4 * g - 1 for g in kernels.GROUP_SIZES), 8191, 8193)
 
 
 def _loose(rng, batch):
@@ -78,29 +77,44 @@ def test_fq_mul_matches_plain_at_ragged_sizes(cuda, batch):
 _G1_CACHE = {}
 
 
-def _g1_lanes(batch, device):
-    """Random G1 points tiled over the batch, every 5th lane the
-    identity."""
+def _g1_points():
     if "pts" not in _G1_CACHE:
         rng = np.random.default_rng(61)
         _G1_CACHE["pts"] = [oracle.g1_mul(oracle.G1_GEN,
                                           int(rng.integers(1, 2**62)))
                             for _ in range(24)]
-    pts = _G1_CACHE["pts"]
-    lanes = [None if i % 5 == 2 else pts[i % len(pts)]
-             for i in range(batch)]
-    return dev.g1_from_oracle(lanes, device)
+    return _G1_CACHE["pts"]
 
 
-@pytest.mark.parametrize("batch", RAGGED)
-def test_g1_dbl_matches_plain_at_ragged_sizes(cuda, batch):
+def _g1_inputs(batch, device):
+    """(P, Q) lane pairs of three kinds: random points with the identity
+    on every 5th lane of P and on other lanes of Q; P + P and P + (−P)
+    on alternate lanes; off-curve coordinates with every 7th lane's limbs
+    at the loose bound (the formulas are polynomials, so kernel and plain
+    version agree on any loose input)."""
+    pts = _g1_points()
+    p = [pts[i % len(pts)] for i in range(batch)]
+    q = [pts[(7 * i + 3) % len(pts)] for i in range(batch)]
+    pairs = [([None if i % 5 == 2 else a for i, a in enumerate(p)],
+              [None if i % 5 == 4 else b for i, b in enumerate(q)]),
+             (p, [a if i % 2 else oracle.g1_neg(a) for i, a in enumerate(p)])]
+    out = [(dev.g1_from_oracle(a, device), dev.g1_from_oracle(b, device))
+           for a, b in pairs]
     rng = np.random.default_rng(batch + 1)
-    points = _g1_lanes(batch, cuda)
-    # Off-curve coordinates with limbs at the loose bound: the formula is
-    # a polynomial, so kernel and plain version agree on any loose input.
-    loose = dev.Point(*(_loose(rng, batch).to(cuda) for _ in range(3)))
-    for p in (points, loose):
-        got, want = kernels.g1_dbl(dev.FQ, tuple(p)), dev.G1.dbl_plain(p)
+    out.append(tuple(dev.Point(*(_loose(rng, batch).to(device)
+                                 for _ in range(3))) for _ in range(2)))
+    return out
+
+
+@pytest.mark.parametrize("op", ("add", "dbl"))
+@pytest.mark.parametrize("batch", RAGGED)
+def test_g1_kernels_match_plain_at_ragged_sizes(cuda, batch, op):
+    for p, q in _g1_inputs(batch, cuda):
+        if op == "add":
+            got = kernels.g1_add(dev.FQ, tuple(p), tuple(q))
+            want = dev.G1.add_plain(p, q)
+        else:
+            got, want = kernels.g1_dbl(dev.FQ, tuple(p)), dev.G1.dbl_plain(p)
         assert all(torch.equal(a, b) for a, b in zip(got, want))
 
 

@@ -56,6 +56,24 @@ def test_g1_add_plain_matches_pallas_point():
         assert np.array_equal(np.asarray(w).T, g.numpy())
 
 
+def test_g1_add_plain_matches_pallas_point_at_the_loose_bound():
+    """Off-curve coordinates with limbs at the loose bound, the limits the
+    kernel's reduction plans assume: the formula is a polynomial, so the
+    plain version and the TPU kernel agree on any loose input."""
+    rng = np.random.default_rng(47)
+    c = rng.integers(0, JFQ.loose_max + 1, size=(6, B, JFQ.n),
+                     dtype=np.int32)
+    c[:, 0] = JFQ.loose_max      # both points at the bound
+    c[:3, 1] = JFQ.loose_max     # one of them
+    c[3:, 2] = JFQ.loose_max
+    coords = [torch.from_numpy(a) for a in c]
+    p, q = tdev.Point(*coords[:3]), tdev.Point(*coords[3:])
+    want = g1_add_transposed(JFQ, block_b=B)(*(_t(a) for a in coords))
+    got = tdev.G1.add_plain(p, q)
+    for w, g in zip(want, got):
+        assert np.array_equal(np.asarray(w).T, g.numpy())
+
+
 def test_g1_dbl_plain_matches_pallas_point():
     p, _ = _points()
     want = g1_dbl_transposed(JFQ, block_b=B)(*(_t(c) for c in p))
