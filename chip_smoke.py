@@ -19,19 +19,33 @@ calls:
                component, verdict for verdict against CpuBlsCrypto;
   mixed        verify_batch over 3 vote hashes (the k=3 rung).
 
+Every batch pairs on the card (device pairing is on by default there):
+the Miller product and the final exponentiation of csrc/pairing.cu.
 Kernel launch counts, and their lanes per launch, are read around the
 main path and per phase; a kernel of the path that was never launched
 fails the run.  The build's ptxas report (registers, spills) is printed,
-and a spill in a kernel the path runs fails the run.  A profiled warm
-round then reports the device-busy time by kernel.  Then each kernel is
-held against its plain version (tolerance 0: integer arithmetic, torch.equal) and
-timed with CUDA events beside its plain version and the least time the
-card could take for the same work, at B = 8192 and at its most frequent
-and its lane-heaviest launch size in a warm round (g1_add at every size
-of the round).  Each phase prints one JSON line; the kernels line, the
-card's name and power limit, and the contract line close the output.
-Any failure exits non-zero.  Exits 2 without a result when no GPU is
-visible; fixtures are cached under .smoke_fixtures/.
+and a spill in any kernel fails the run.  Then
+
+  pairing_ab       the warm single-hash round with device pairing off,
+                   on, on, off (seconds, verifies/s), and the device
+                   pairing's own time per flush at 2 and 5 pairs;
+  crosscheck       one warm round with CONSENSUS_PAIRING_CROSSCHECK=1:
+                   any device/host verdict mismatch fails the run.
+
+Then each kernel is held against its plain version (tolerance 0:
+integer arithmetic, torch.equal) and timed with CUDA events beside its
+plain version and the least time the card could take for the same work:
+the field and G1 kernels at B = 8192 and at their most frequent and
+lane-heaviest launch sizes in a warm round (g1_add at every size of the
+round); the pairing kernels (phase pairing_kernels) on seeded loose
+limbs at 2 and 5 pairs, the Fq12 multiply at 1, 2, 4 and 5 lanes, the
+final exponentiation at 1, each also beside its latency bound (its
+dependent product stages times one product stage's time, measured on
+an inversion chain).  Each phase prints one JSON line; the kernels
+line, the card's name and power limit, and the contract line close the
+output.  A profiled warm round, last so that the profiler touches no
+host-clock phase, reports the device-busy time by kernel.  Any failure exits non-zero.  Exits 2 without a result when no
+GPU is visible; fixtures are cached under .smoke_fixtures/.
 """
 
 from __future__ import annotations
@@ -62,6 +76,11 @@ IMAD_PER_CLOCK_PER_SM = 64
 ALU_PER_CLOCK_PER_SM = 64
 ISSUE_PER_CLOCK_PER_SM = 128
 LANES = 8192
+#: The pairing kernels (csrc/pairing.cu), and the Fq elements a lane of
+#: each reads and writes (a Miller pair: px, py, qx, qy in; Fq12 out).
+PAIRING = ("miller_product", "fq12_mul", "final_exp")
+PAIRING_LANE_FQ = {"miller_product": 6 + 12, "fq12_mul": 24 + 12,
+                   "final_exp": 12 + 12}
 ROOT = os.path.dirname(os.path.abspath(__file__))
 FIXTURE_DIR = os.path.join(ROOT, ".smoke_fixtures")
 
@@ -160,23 +179,38 @@ def _ops(*terms) -> dict:
             for k in ("imad", "alu", "either")}
 
 
-def lane_ops(spec) -> dict:
-    """int32 instructions per lane of each kernel, by pipe, counted from
-    its field ops.  A limb-wise add, a subtraction a + (pad − b) (one
-    IADD3) or a multiple by a small constant (IMAD, LEA or SHF) can issue
-    on either pipe ("either")."""
+def field_ops(spec) -> dict:
+    """int32 instructions per lane of each base-field op, by pipe.  A
+    limb-wise add, a subtraction a + (pad − b) (one IADD3), a negation
+    pad − x or a multiple by a small constant (IMAD, LEA or SHF) can
+    issue on either pipe ("either")."""
     n = spec.n
     limbwise = {"imad": 0, "alu": 0, "either": n}
-    mul = _ops((1, {"imad": n * n, "alu": 0, "either": 0}),
-               (1, plan_ops(spec, "mul")))
     f = {name: _ops((1, limbwise), (1, plan_ops(spec, name)))
-         for name in ("add2", "sub", "small2", "small3", "small8",
+         for name in ("add2", "sub", "neg", "small2", "small3", "small8",
                       "small12")}
-    g1_add = _ops((12, mul), (12, f["add2"]), (5, f["sub"]),
+    f["mul"] = _ops((1, {"imad": n * n, "alu": 0, "either": 0}),
+                    (1, plan_ops(spec, "mul")))
+    f["add"] = f.pop("add2")
+    return f
+
+
+def lane_ops(spec) -> dict:
+    """int32 instructions per lane of each kernel, by pipe, counted from
+    its field ops; the pairing kernels' from their programs' op counts
+    (ops/tower_program.py)."""
+    from consensus_overlord_tpu_torch.ops import tower_program
+    f = field_ops(spec)
+    g1_add = _ops((12, f["mul"]), (12, f["add"]), (5, f["sub"]),
                   (1, f["small3"]), (2, f["small12"]))
-    g1_dbl = _ops((8, mul), (2, f["add2"]), (1, f["sub"]), (1, f["small8"]),
-                  (1, f["small12"]), (1, f["small3"]), (1, f["small2"]))
-    return {"fq_mul": mul, "g1_add": g1_add, "g1_dbl": g1_dbl}
+    g1_dbl = _ops((8, f["mul"]), (2, f["add"]), (1, f["sub"]),
+                  (1, f["small8"]), (1, f["small12"]), (1, f["small3"]),
+                  (1, f["small2"]))
+    out = {"fq_mul": f["mul"], "g1_add": g1_add, "g1_dbl": g1_dbl}
+    for name in PAIRING:
+        by_kind = tower_program.program(name, spec).stats["by_kind"]
+        out[name] = _ops(*((c, f[k]) for k, c in by_kind.items()))
+    return out
 
 
 def bound(ops: dict, lanes: int, bytes_total: float, clock_hz: float):
@@ -262,26 +296,213 @@ def kernel_checks(torch, launches: dict, operands, card: dict,
                 "plain_ms": time_ms(torch, plain, 10, card["clock_hz"]),
                 "bound_ms": bound_ms, "bound_by": bound_by}
 
+    field = [k for k in kernels.KERNELS if k.name not in PAIRING]
     rows = [{"name": k.name, "route": k.route, "source": k.source,
              "replaces": k.replaces, "launches": launches[k.name],
              **measure(k.name, LANES), "library_ms": None}
-            for k in kernels.KERNELS]
+            for k in field]
     sized = [{"name": k.name, "lanes": lanes, **measure(k.name, lanes)}
-             for k in kernels.KERNELS for lanes in frequent[k.name]]
+             for k in field for lanes in frequent[k.name]]
     if oracle.g1_add(p_aff[0], q_aff[0]) != dev.g1_to_oracle(
             dev.Point(*(c[:1] for c in dev.G1.add(p, q))))[0]:
         fail("g1_add disagrees with the oracle")
     return rows, sized
 
 
-_PTXAS_NAME = re.compile(r"(fq_mul_kernel|g1_dbl_kernel|g1_add_kernel)")
+def pairing_checks(torch, launches: dict, per_flush: dict, card: dict,
+                   seed: int, ptxas: dict):
+    """Each pairing kernel vs its plain version on the card (torch.equal)
+    on seeded loose limbs (a row of each operand at the loose bound), at
+    2 and 5 pairs, 1, 2, 4 and 5 Fq12 products and one final
+    exponentiation; timed with CUDA events beside the plain version, the
+    throughput bound and the latency bound.  Returns the kernels-line rows
+    (at the main path's single-hash sizes: 2 pairs, one product, one
+    exponentiation) and the phase line, with each kernel's registers
+    and spills."""
+    from consensus_overlord_tpu_torch.ops import kernels
+    from consensus_overlord_tpu_torch.ops import pairing as pr
+    from consensus_overlord_tpu_torch.ops import tower_program
+
+    fq = pr.FQ
+    gen = torch.Generator(device="cuda").manual_seed(seed + 4)
+
+    def loose(*shape):
+        t = torch.randint(0, fq.loose_max + 1, shape + (fq.n,),
+                          dtype=torch.int32, device="cuda", generator=gen)
+        t.view(-1, fq.n)[0] = fq.loose_max
+        return t
+
+    # One dependent product stage at one lane: the inversion chain.
+    chain = loose(1, 2, 3, 2)
+    inv = kernels.final_exp(fq, chain, program="fq_inv")
+    if not torch.equal(inv.view(12, fq.n)[0], fq.inv(chain.view(12, fq.n)[0])):
+        fail("the fq_inv chain differs from the plain inversion")
+    stages = tower_program.program("fq_inv", fq).stats["mul_stages"]
+    stage_ms = time_ms(torch, lambda: kernels.final_exp(
+        fq, chain, program="fq_inv"), 20, card["clock_hz"]) / stages
+    ops = lane_ops(fq)
+
+    def cases(name, lanes):
+        if name == "miller_product":
+            px, py, qx, qy = loose(lanes), loose(lanes), loose(lanes, 2), \
+                loose(lanes, 2)
+            skip = torch.arange(lanes, device="cuda") % 4 == 1
+
+            def plain():
+                f = pr.miller_loop(px, py, qx, qy)
+                return pr.FQ12.where(skip, pr.FQ12.one_like(f), f)
+            return (lambda: kernels.miller_product(fq, px, py, qx, qy, skip),
+                    plain)
+        if name == "fq12_mul":
+            x, y = loose(lanes, 2, 3, 2), loose(lanes, 2, 3, 2)
+            return lambda: pr.fq12_mul(x, y), lambda: pr.FQ12.mul(x, y)
+        f = loose(lanes, 2, 3, 2)
+        return (lambda: pr.final_exponentiation(f),
+                lambda: pr.FQ12.final_exponentiation(f))
+
+    sizes = {"miller_product": (2, 5), "fq12_mul": (1, 2, 4, 5),
+             "final_exp": (1,)}
+    path_size = {"miller_product": 2, "fq12_mul": 1, "final_exp": 1}
+    measured, rows = [], []
+    for name in PAIRING:
+        prog = tower_program.program(name, fq).stats
+        for lanes in sizes[name]:
+            run, plain = cases(name, lanes)
+            got, want = run(), plain()
+            if not torch.equal(got, want):
+                fail(f"{name} differs from its plain version at {lanes}")
+            bound_ms, bound_by = bound(
+                ops[name], lanes, 4 * fq.n * PAIRING_LANE_FQ[name] * lanes,
+                card["clock_hz"])
+            row = {"name": name, "lanes": lanes,
+                   "max_abs_err": int((got.long() - want.long()).abs().max()),
+                   "ms": time_ms(torch, run, 20, card["clock_hz"]),
+                   "plain_ms": time_ms(torch, plain, 2, card["clock_hz"]),
+                   "bound_ms": bound_ms, "bound_by": bound_by,
+                   "latency_bound_ms": prog["mul_stages"] * stage_ms}
+            row["binding_bound"] = ("latency" if row["latency_bound_ms"] >
+                                    bound_ms else bound_by)
+            measured.append(row)
+            if lanes == path_size[name]:
+                k = {kk.name: kk for kk in kernels.KERNELS}[name]
+                rows.append({"name": name, "route": k.route,
+                             "source": k.source, "replaces": k.replaces,
+                             "launches": launches[name],
+                             **{key: row[key] for key in (
+                                 "max_abs_err", "ms", "plain_ms",
+                                 "bound_ms", "bound_by")},
+                             "library_ms": None})
+    phase = {"phase": "pairing_kernels", "product_stage_ms": stage_ms,
+             "programs": {name: tower_program.program(name, fq).stats
+                          for name in PAIRING},
+             "ptxas": {name: ptxas[name + "_kernel"] for name in PAIRING},
+             "launches_per_flush": per_flush, "kernels": measured}
+    return rows, phase
+
+
+def pairing_ab(torch, prov, s0, sigs, h, pks, sync, card) -> dict:
+    """The warm single-hash round with device pairing off, on, on, off
+    (host clock, ending in the verdict readback), and the device
+    pairing's own time per flush at P = 2 and 5 pairs on real points:
+    device time (CUDA events over back-to-back flushes) and host clock
+    (a flush ending in its verdict readback), beside the host oracle's
+    pairing of the same pairs (the native backend)."""
+    from consensus_overlord_tpu_torch.crypto import bls12381 as oracle
+    from consensus_overlord_tpu_torch.crypto.cuda_provider import (
+        CudaBlsCrypto)
+    from consensus_overlord_tpu_torch.ops import pairing as pr
+
+    n = len(pks)
+    off = CudaBlsCrypto(s0, device_pairing=False)
+    off.load_pubkey_cache(prov._pk)
+    off.verify_batch(sigs, [h] * n, pks)  # warm: the cache's upload
+    rounds = []
+    for on in (False, True, True, False):
+        p = prov if on else off
+        sync()
+        t = time.perf_counter()
+        got = p.verify_batch(sigs, [h] * n, pks)
+        sync()
+        secs = time.perf_counter() - t
+        if got != [True] * n:
+            fail(f"pairing_ab: device_pairing={on} rejected valid votes")
+        rounds.append({"device_pairing": on, "seconds": secs,
+                       "verifies_per_s": n / secs})
+    neg_g2 = (oracle.G2_GEN[0], oracle.fq2_neg(oracle.G2_GEN[1]))
+    h_pt = oracle.hash_to_g1(h)
+    sig0 = oracle.g1_decompress(sigs[0])
+    pk0 = oracle.g2_decompress(pks[0])
+    flush = {}
+    for pairs in (2, 5):
+        g1 = [sig0, h_pt, sig0, h_pt, None][:pairs]
+        g2 = [neg_g2, pk0, neg_g2, pk0, pk0][:pairs]
+        px, py, pinf = (torch.as_tensor(a, device="cuda")
+                        for a in pr.g1_affine_from_oracle(g1))
+        qx, qy, qinf = (torch.as_tensor(a, device="cuda")
+                        for a in pr.g2_affine_from_oracle(g2))
+        mask = torch.ones(pairs, dtype=torch.bool, device="cuda")
+
+        def run():
+            return pr.multi_pairing_is_one_staged(px, py, pinf, qx, qy,
+                                                  qinf, mask)
+        if not bool(run()):
+            fail(f"device pairing rejected a true relation at {pairs} pairs")
+        t = time.perf_counter()
+        for _ in range(10):
+            bool(run())
+        host_ms = (time.perf_counter() - t) * 100
+        t = time.perf_counter()
+        for _ in range(10):
+            oracle.multi_pairing_is_one([(p, q) for p, q in zip(g1, g2)])
+        flush[pairs] = {"device_ms": time_ms(torch, run, 20,
+                                            card["clock_hz"]),
+                        "host_ms": host_ms,
+                        "host_oracle_ms": (time.perf_counter() - t) * 100}
+    return {"phase": "pairing_ab", "votes": n, "rounds": rounds,
+            "flush": flush}
+
+
+def crosscheck(prov, s0, sigs, h, pks) -> dict:
+    """One warm single-hash round and one failing 64-lane batch with
+    CONSENSUS_PAIRING_CROSSCHECK=1: every device verdict is paired on the
+    host too; a mismatch (the provider logs and counts each) fails the
+    run."""
+    from consensus_overlord_tpu_torch.crypto import cuda_provider
+    from consensus_overlord_tpu_torch.crypto.provider import CpuBlsCrypto
+
+    os.environ["CONSENSUS_PAIRING_CROSSCHECK"] = "1"
+    try:
+        xp = cuda_provider.CudaBlsCrypto(s0)
+    finally:
+        del os.environ["CONSENSUS_PAIRING_CROSSCHECK"]
+    xp.load_pubkey_cache(prov._pk)
+    n = len(pks)
+    t = time.perf_counter()
+    good = xp.verify_batch(sigs, [h] * n, pks)
+    secs = time.perf_counter() - t
+    sb = list(sigs[:64])
+    sb[3], sb[4] = sb[4], sb[3]
+    bad = xp.verify_batch(sb, [h] * 64, pks[:64])
+    cpu = CpuBlsCrypto(s0)
+    if good != [True] * n or bad != [cpu.verify_signature(s, h, v)
+                                     for s, v in zip(sb, pks[:64])]:
+        fail("crosscheck: wrong verdicts")
+    if xp.pairing_mismatches:  # each one logged as an error
+        fail(f"crosscheck: {xp.pairing_mismatches} device/host mismatches")
+    return {"phase": "crosscheck", "votes": n, "seconds": secs,
+            "mismatches": xp.pairing_mismatches}
+
+
+_PTXAS_NAME = re.compile(r"(fq_mul_kernel|g1_dbl_kernel|g1_add_kernel|"
+                         r"miller_product_kernel|fq12_mul_kernel|"
+                         r"final_exp_kernel)")
 
 
 def ptxas_report(kernels) -> dict:
     """Registers, stack and spills of every kernel entry, from ptxas's
-    -v report of the build."""
+    -v report of the build of each library the checkout has."""
     out, cur = {}, None
-    for lib in ("fq_mul", "g1_point"):
+    for lib in kernels._LIBS:
         for line in kernels.build_log(lib).splitlines():
             m = re.search(r"Function properties for (\S+)", line)
             if m:
@@ -324,7 +545,7 @@ def trace_round(torch, prov, sigs, h, pks) -> dict:
     top = sorted(kern, key=lambda e: -e.self_device_time_total)[:6]
     ours = {name: [(e.count, e.self_device_time_total / 1e3)
                    for e in kern if name + "_kernel" in e.key]
-            for name in ("fq_mul", "g1_add", "g1_dbl")}
+            for name in ("fq_mul", "g1_add", "g1_dbl") + PAIRING}
     return {"phase": "single_hash_trace", "votes": n, "wall_s": wall,
             "device_busy_s": busy, "device_idle_share": 1 - busy / wall,
             "kernel_launches": sum(e.count for e in kern),
@@ -476,7 +697,8 @@ def main(argv=None) -> int:
           "lane_ops": lane_ops(BLS12_381_FQ)})
     ptxas = ptxas_report(kernels)
     emit({"phase": "ptxas", "kernels": ptxas})
-    for name in ("fq_mul_kernel", "g1_add_kernel", "g1_dbl_kernel"):
+    for name in ("fq_mul", "g1_add", "g1_dbl") + PAIRING:
+        name += "_kernel"
         if name not in ptxas or ptxas[name].get("spill_stores", 1):
             fail(f"{name}: spills or missing from the ptxas report")
 
@@ -490,15 +712,19 @@ def main(argv=None) -> int:
     phase_counts, phase_sizes = drive_main_path(prov, s0, hashes, pks, sigs,
                                                 torch.cuda.synchronize)
     totals = kernels.counts()
-    for name, used in (("pubkeys", ["fq_mul"]),
-                       ("single_hash", ["fq_mul", "g1_add", "g1_dbl"]),
-                       ("bad_lanes", ["fq_mul", "g1_add", "g1_dbl"]),
-                       ("mixed", ["fq_mul", "g1_add", "g1_dbl"])):
+    every = [k.name for k in kernels.KERNELS]
+    for name, used in (("pubkeys", ["fq_mul"]), ("single_hash", every),
+                       ("bad_lanes", every), ("mixed", every)):
         idle = [k for k in used if phase_counts[name][k] == 0]
         if idle:
             fail(f"phase {name} never launched {idle}")
+    per_flush = {k: {"single_hash": phase_counts["single_hash"][k],
+                     "mixed": phase_counts["mixed"][k]} for k in PAIRING}
 
-    emit(trace_round(torch, prov, sigs[0], hashes[0], pks))
+    # Host-clock phases first: the profiled round runs last.
+    emit(pairing_ab(torch, prov, s0, sigs[0], hashes[0], pks,
+                    torch.cuda.synchronize, card))
+    emit(crosscheck(prov, s0, sigs[0], hashes[0], pks))
     # Each kernel's most frequent lane count in a warm round, and the one
     # that carries the most lanes; g1_add at every size of the round (its
     # tree sum launches once at each power of two below the batch).
@@ -510,7 +736,11 @@ def main(argv=None) -> int:
     operands = kernel_operands(torch, args.seed)
     rows, sized = kernel_checks(torch, totals, operands, card, frequent)
     emit({"phase": "kernels_at_main_path_sizes", "kernels": sized})
-    emit({"kernels": rows})
+    pair_rows, pair_phase = pairing_checks(torch, totals, per_flush, card,
+                                           args.seed, ptxas)
+    emit(pair_phase)
+    emit(trace_round(torch, prov, sigs[0], hashes[0], pks))
+    emit({"kernels": rows + pair_rows})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

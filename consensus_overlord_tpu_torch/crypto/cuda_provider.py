@@ -9,10 +9,15 @@ with one random-linear-combination relation
 with 64-bit random weights r_i.  The O(N) part — G1 decompression with a
 per-lane subgroup check, the G1 MSM, the pubkey-row gather and the
 validity-masked G2 MSM(s) — runs on the card (``verify_round`` /
-``verify_round_multi``); the pairing runs on the host native backend.  A
-failed relation falls back to per-signature checks, so verdicts are
-exact.  ``update_pubkeys`` validates public keys on the card
-(``g2_validate``) into a pubkey cache that stays on the device.
+``verify_round_multi``), and so does the pairing verdict
+(ops/pairing.py ``multi_pairing_is_one_staged``: the Miller product and
+one final exponentiation), enqueued right behind the round, so a batch
+reads back only the validity bitmap and one verdict bool.  With device
+pairing off (``device_pairing=False``, or ``CONSENSUS_DEVICE_PAIRING=0``)
+the aggregates are read back and paired on the host native backend.  A
+failed relation falls back to per-signature checks on the host oracle,
+so verdicts are exact.  ``update_pubkeys`` validates public keys on the
+card (``g2_validate``) into a pubkey cache that stays on the device.
 
 Nothing here hides the device: on a machine without a GPU, a provider
 asked for "cuda" raises; a kernel that fails to build or launch raises.
@@ -22,6 +27,8 @@ package.
 
 from __future__ import annotations
 
+import logging
+import os
 import secrets
 import threading
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -31,6 +38,7 @@ import torch
 
 from ..core.sm3 import sm3_hash
 from ..ops import bls12381_groups as dev
+from ..ops import pairing as pairing_ops
 from ..ops.curve import Point
 from . import bls12381 as oracle
 from .provider import CpuBlsCrypto
@@ -45,8 +53,17 @@ _PK_CAPS = (256, 1024, 4096, 16384)
 # single-hash sub-batches.
 _GROUP_SIZES = (2, 3, 4)
 
-#: −G2 generator, the fixed G2 point of the signature pair.
+# Device multi-pairing pad ladder: a flush pairs the signature aggregate
+# with k ≤ 4 hash groups; padded pairs are masked to one.
+_PAIR_SIZES = (2, 5)
+
+#: −G2 generator, the fixed G2 point of every relation's signature pair:
+#: as the host oracle's point and as limbs for the device pairing.
 _NEG_G2_ORACLE = (oracle.G2_GEN[0], oracle.fq2_neg(oracle.G2_GEN[1]))
+_NEG_G2_GEN_X = dev.FQ2.from_ints([_NEG_G2_ORACLE[0]])[0]
+_NEG_G2_GEN_Y = dev.FQ2.from_ints([_NEG_G2_ORACLE[1]])[0]
+
+logger = logging.getLogger(__name__)
 
 
 def _pad_to(n: int) -> int:
@@ -169,14 +186,33 @@ class CudaBlsCrypto:
     device: where the batched paths run ("cuda" by default; "cpu" runs
     every kernel's plain PyTorch version, for tests).
     device_threshold: batches smaller than this verify on the host oracle,
-    and smaller pubkey sets validate there."""
+    and smaller pubkey sets validate there.
+    device_pairing: pair on the device (True) or on the host (False);
+    None reads CONSENSUS_DEVICE_PAIRING: "auto" (the default) is on for
+    a CUDA device and off on the CPU, "0"/"off"/"false" off, anything
+    else on.  CONSENSUS_PAIRING_CROSSCHECK=1 also pairs every device
+    verdict on the host and logs a mismatch as an error (counted in
+    ``pairing_mismatches``); it costs the aggregates' readback.  A device
+    pairing that fails raises: there is no host fallback."""
 
     def __init__(self, private_key: int, common_ref: bytes = b"",
-                 device_threshold: int = 32, device="cuda"):
+                 device_threshold: int = 32, device="cuda",
+                 device_pairing: Optional[bool] = None):
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("CudaBlsCrypto: device 'cuda' was asked for "
                                "but torch.cuda.is_available() is False")
+        if device_pairing is None:
+            mode = os.environ.get("CONSENSUS_DEVICE_PAIRING", "auto")
+            if mode == "auto":
+                device_pairing = self.device.type == "cuda"
+            else:
+                device_pairing = mode not in ("0", "off", "false")
+        self._pairing_on_device = bool(device_pairing)
+        self._pairing_crosscheck = (
+            os.environ.get("CONSENSUS_PAIRING_CROSSCHECK", "0") == "1")
+        #: Crosscheck verdicts where the device and the host disagreed.
+        self.pairing_mismatches = 0
         self._cpu = CpuBlsCrypto(private_key, common_ref)
         self._common_ref = common_ref
         self._threshold = device_threshold
@@ -221,7 +257,8 @@ class CudaBlsCrypto:
                            voters: Sequence[bytes]):
         """Enqueue the device work now and return a zero-argument
         `resolve()` that reads the result back and finishes on the host
-        (pairing, and the per-lane fallback of a failed relation).
+        (the per-lane fallback of a failed relation; the pairing too when
+        device pairing is off).
         Single-hash and ≤4-hash batches are one device round; more hashes
         split into single-hash sub-batches enqueued back to back."""
         n = len(signatures)
@@ -285,23 +322,92 @@ class CudaBlsCrypto:
                     (sx, ssign, sinf, sok, wpacked, rows))
         return (size,) + ins + (pk_ok,)
 
+    def _dispatch_pairing(self, g1s, g2s) -> torch.Tensor:
+        """Enqueue the device multi-pairing verdict over a flush's pairs.
+        g1s: [(x, y, inf)] G1 strict limbs ((n,) each, a device tensor or
+        a host array) and infinity flag; g2s: the matching Fq2 pairs
+        ((2, n) limbs).  Pads to the _PAIR_SIZES ladder with infinity,
+        masked pairs, and returns the verdict as a device bool."""
+        k = len(g1s)
+        size = next((s for s in _PAIR_SIZES if k <= s), k)
+        n = dev.FQ.n
+        host = {"px": np.zeros((size, n), np.int32),
+                "py": np.zeros((size, n), np.int32),
+                "qx": np.zeros((size, 2, n), np.int32),
+                "qy": np.zeros((size, 2, n), np.int32),
+                "pinf": np.ones(size, bool), "qinf": np.ones(size, bool)}
+        on_dev = []
+        for i, (g1, g2) in enumerate(zip(g1s, g2s)):
+            for keys, pt in ((("px", "py", "pinf"), g1),
+                             (("qx", "qy", "qinf"), g2)):
+                for key, v in zip(keys, pt):
+                    if isinstance(v, torch.Tensor):
+                        on_dev.append((key, i, v))
+                    else:
+                        host[key][i] = v
+        t = {key: self._to_dev(a) for key, a in host.items()}
+        for key, i, v in on_dev:
+            t[key][i] = v
+        mask = self._to_dev(np.arange(size) < k)
+        return pairing_ops.multi_pairing_is_one_staged(
+            t["px"], t["py"], t["pinf"], t["qx"], t["qy"], t["qinf"], mask)
+
+    @staticmethod
+    def _h_limbs(h_pt):
+        """Oracle G1 point → (x, y) strict limb arrays for the pairing's
+        hash-side pairs."""
+        return dev.FQ.from_int(h_pt[0]), dev.FQ.from_int(h_pt[1])
+
+    def _read(self, out, verdict_dev):
+        """The slim readback (validity bitmap only) when the device pairs
+        and no crosscheck is on; else every output, as numpy."""
+        if verdict_dev is not None and not self._pairing_crosscheck:
+            return None, out[3].cpu().numpy()
+        flat = [t.cpu().numpy() for t in out]
+        return flat, flat[3]
+
+    def _paired(self, verdict_dev, flat, host_pairing, what: str) -> bool:
+        """The relation's verdict: the device's, or the host oracle's when
+        device pairing is off; the crosscheck compares the two."""
+        if verdict_dev is None:
+            return host_pairing(flat)
+        paired = bool(verdict_dev.item())
+        if self._pairing_crosscheck:
+            host_p = host_pairing(flat)
+            if host_p != paired:
+                self.pairing_mismatches += 1
+                logger.error("device pairing verdict %s != host oracle %s "
+                             "(%s)", paired, host_p, what)
+        return paired
+
     def _dispatch_single_hash(self, signatures, h, voters, n):
         (_, sx, ssign, sinf, sok, wpacked, rows,
          pk_ok) = self._host_prep(signatures, voters, n)
         out = verify_round(sx, ssign, sinf, sok, wpacked, rows,
                            *self._pk_device())
+        h_pt = oracle.hash_to_g1(h, self._common_ref)
+        verdict_dev = None
+        if self._pairing_on_device:
+            # The verdict is enqueued before resolve() runs; only the
+            # validity bitmap and one bool cross to the host afterwards.
+            verdict_dev = self._dispatch_pairing(
+                [(out[0], out[1], out[2]), (*self._h_limbs(h_pt), False)],
+                [(_NEG_G2_GEN_X, _NEG_G2_GEN_Y, False),
+                 (out[4], out[5], out[6])])
+
+        def host_pairing(flat) -> bool:
+            ax, ay, ainf, _, gx, gy, ginf = flat
+            return oracle.multi_pairing_is_one([
+                (_affine_to_oracle_g1(ax, ay, ainf), _NEG_G2_ORACLE),
+                (h_pt, _affine_to_oracle_g2(gx, gy, ginf))])
 
         def resolve() -> List[bool]:
-            ax, ay, ainf, valid, gx, gy, ginf = (t.cpu().numpy()
-                                                 for t in out)
+            flat, valid = self._read(out, verdict_dev)
             v = valid[:n] & pk_ok
             if not v.any():
                 return [False] * n
-            agg_sig = _affine_to_oracle_g1(ax, ay, ainf)
-            agg_pk = _affine_to_oracle_g2(gx, gy, ginf)
-            h_pt = oracle.hash_to_g1(h, self._common_ref)
-            if oracle.multi_pairing_is_one([(agg_sig, _NEG_G2_ORACLE),
-                                            (h_pt, agg_pk)]):
+            if self._paired(verdict_dev, flat, host_pairing,
+                            f"single-hash batch n={n}"):
                 return [bool(b) for b in v]
             # Batch relation failed: exact per-lane localization.
             return [bool(v[i]) and self._verify_one_cached(
@@ -324,20 +430,34 @@ class CudaBlsCrypto:
         for h, idxs in groups.items():
             for i in idxs:
                 lane_hashes[i] = h
+        h_pts = [oracle.hash_to_g1(h, self._common_ref) for h in ghashes]
+        verdict_dev = None
+        if self._pairing_on_device:
+            # One pair per hash group and the signature pair.  A group
+            # whose aggregate is at infinity (no valid lane voted on its
+            # hash) is skipped by the q_inf mask, as the host path skips.
+            g1s = [(out[0], out[1], out[2])]
+            g2s = [(_NEG_G2_GEN_X, _NEG_G2_GEN_Y, False)]
+            for g, h_pt in enumerate(h_pts):
+                g1s.append((*self._h_limbs(h_pt), False))
+                g2s.append(tuple(out[4 + 3 * g: 7 + 3 * g]))
+            verdict_dev = self._dispatch_pairing(g1s, g2s)
+
+        def host_pairing(flat) -> bool:
+            pairs = [(_affine_to_oracle_g1(*flat[:3]), _NEG_G2_ORACLE)]
+            for g, h_pt in enumerate(h_pts):
+                agg_pk = _affine_to_oracle_g2(*flat[4 + 3 * g: 7 + 3 * g])
+                if agg_pk is not None:  # else no valid lane voted on it
+                    pairs.append((h_pt, agg_pk))
+            return oracle.multi_pairing_is_one(pairs)
 
         def resolve() -> List[bool]:
-            flat = [t.cpu().numpy() for t in out]
-            v = flat[3][:n] & pk_ok
+            flat, valid = self._read(out, verdict_dev)
+            v = valid[:n] & pk_ok
             if not v.any():
                 return [False] * n
-            pairs = [(_affine_to_oracle_g1(*flat[:3]), _NEG_G2_ORACLE)]
-            for g, h in enumerate(ghashes):
-                agg_pk = _affine_to_oracle_g2(*flat[4 + 3 * g: 7 + 3 * g])
-                if agg_pk is None:
-                    continue  # no valid lane voted on this hash
-                pairs.append((oracle.hash_to_g1(h, self._common_ref),
-                              agg_pk))
-            if oracle.multi_pairing_is_one(pairs):
+            if self._paired(verdict_dev, flat, host_pairing,
+                            f"{len(ghashes)}-hash batch n={n}"):
                 return [bool(b) for b in v]
             return [bool(v[i]) and self._verify_one_cached(
                         signatures[i], lane_hashes[i], voters[i])

@@ -390,6 +390,16 @@ class FieldSpec:
     def one(self, device="cpu") -> Tensor:
         return self.const("one", device)
 
+    def constant(self, v: int, device="cpu") -> Tensor:
+        """The limbs of v mod p as an (n,) tensor on `device`, made once
+        per device (the tower's Frobenius constants)."""
+        key = (f"int{v % self.p}", torch.device(device))
+        t = self._consts.get(key)
+        if t is None:
+            t = torch.as_tensor(self.from_int(v), device=key[1])
+            self._consts[key] = t
+        return t
+
     def zero(self, device="cpu") -> Tensor:
         return torch.zeros((self.n,), dtype=torch.int32, device=device)
 
@@ -413,9 +423,10 @@ class FieldSpec:
 
 class PlainField:
     """A FieldSpec whose mul/sq are always the plain PyTorch multiply —
-    the field under the plain versions of the fused point kernels
-    (bls12381_groups.G1.add_plain/dbl_plain), which must launch no kernel
-    on any device."""
+    the field under the plain versions of the fused kernels
+    (bls12381_groups.G1.add_plain/dbl_plain, the pairing tower), which
+    must launch no kernel on any device.  Its exponentiations run its own
+    multiply."""
 
     def __init__(self, spec: FieldSpec):
         self._spec = spec
@@ -428,6 +439,9 @@ class PlainField:
 
     def sq(self, x: Tensor) -> Tensor:
         return self._spec.mul_plain(x, x)
+
+    pow_static = FieldSpec.pow_static
+    inv = FieldSpec.inv
 
 
 BLS12_381_P = int(

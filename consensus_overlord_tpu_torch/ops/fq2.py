@@ -45,6 +45,9 @@ class Fq2Ops:
     def one(self, device="cpu") -> Tensor:
         return self.build(self.fq.one(device), self.fq.zero(device))
 
+    def zero(self, device="cpu") -> Tensor:
+        return self.build(self.fq.zero(device), self.fq.zero(device))
+
     def from_ints(self, pairs) -> np.ndarray:
         """(len, 2, n) int32 limbs of int pairs (c0, c1)."""
         return np.stack([np.stack([self.fq.from_int(a), self.fq.from_int(b)])

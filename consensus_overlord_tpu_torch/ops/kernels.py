@@ -16,9 +16,10 @@ increments once per launch and nowhere else, so a run can show that the
 main path went through the kernel, and a histogram of the lanes per
 launch (``Kernel.sizes``).
 
-The wrappers take the JAX package's (B, n) limb layout, int32, contiguous,
-on one CUDA device; they allocate outputs with ``torch.empty`` and launch
-on ``torch.cuda.current_stream()``.
+The wrappers take the JAX package's limb layouts — (B, n) for the field
+and G1 kernels, the tower's (B, 2, n), (B, 2, 3, 2, n) for the pairing
+kernels — int32, contiguous, on one CUDA device; they allocate outputs
+with ``torch.empty`` and launch on ``torch.cuda.current_stream()``.
 """
 
 from __future__ import annotations
@@ -53,14 +54,18 @@ FQ_MAXW = 80
 FQ_FOLD_ROWS = 47
 #: Reduction plans in the order of the generated FQ_PLAN_* enum (their
 #: input bounds: plan_bounds).
-PLAN_NAMES = ("mul", "add2", "sub", "small2", "small3", "small8", "small12")
+PLAN_NAMES = ("mul", "add2", "sub", "small2", "small3", "small8", "small12",
+              "neg")
 
 #: Threads per lane ("lane group") of each kernel, fixed at build time
-#: (MUL_G in csrc/fq_mul.cu, ADD_G and DBL_G in csrc/g1_point.cu).
+#: (MUL_G in csrc/fq_mul.cu, ADD_G and DBL_G in csrc/g1_point.cu,
+#: TOWER_G in csrc/pairing.cu).
 FQ_MUL_GROUP = 8
 G1_ADD_GROUP = 16
 G1_DBL_GROUP = 16
-GROUP_SIZES = tuple(sorted({FQ_MUL_GROUP, G1_ADD_GROUP, G1_DBL_GROUP}))
+TOWER_GROUP = 16
+GROUP_SIZES = tuple(sorted({FQ_MUL_GROUP, G1_ADD_GROUP, G1_DBL_GROUP,
+                            TOWER_GROUP}))
 
 
 class Kernel:
@@ -90,7 +95,20 @@ G1_ADD = Kernel(
 G1_DBL = Kernel(
     "g1_dbl", "consensus_overlord_tpu_torch/csrc/g1_point.cu",
     "consensus_overlord_tpu/ops/pallas_point.py:150")
-KERNELS = (FQ_MUL, G1_ADD, G1_DBL)
+# The pairing kernels replace XLA jits of the JAX package, not Pallas
+# kernels: the Miller product (_miller_product_fn, whose pair tree is
+# fq12_tree_product) and the final exponentiation (_final_is_one_fn).
+MILLER_PRODUCT = Kernel(
+    "miller_product", "consensus_overlord_tpu_torch/csrc/pairing.cu",
+    "consensus_overlord_tpu/ops/pairing.py:203")
+FQ12_MUL = Kernel(
+    "fq12_mul", "consensus_overlord_tpu_torch/csrc/pairing.cu",
+    "consensus_overlord_tpu/ops/pairing.py:147")
+FINAL_EXP = Kernel(
+    "final_exp", "consensus_overlord_tpu_torch/csrc/pairing.cu",
+    "consensus_overlord_tpu/ops/pairing.py:211")
+KERNELS = (FQ_MUL, G1_ADD, G1_DBL, MILLER_PRODUCT, FQ12_MUL, FINAL_EXP)
+PAIRING_KERNELS = (MILLER_PRODUCT, FQ12_MUL, FINAL_EXP)
 
 
 def reset_counts() -> None:
@@ -127,6 +145,8 @@ def plan_bounds(spec, name: str) -> List[int]:
         return spec._conv_bounds()
     if name == "sub":
         return [L + int(spec._pad_np.max())] * n
+    if name == "neg":
+        return [int(spec._pad_np.max())] * n
     k = {"add2": 2, "small2": 2, "small3": 3, "small8": 8, "small12": 12}
     return [k[name] * L] * n
 
@@ -231,6 +251,11 @@ _LIBS = {
     "g1_point": ("g1_point.cu", {
         "g1_add_launch": [_VP] * 9 + [_I, _I, _VP],
         "g1_dbl_launch": [_VP] * 6 + [_I, _I, _VP],
+    }),
+    "pairing": ("pairing.cu", {
+        "miller_product_launch": [_VP] * 8 + [_I, _I, _I, _VP],
+        "fq12_mul_launch": [_VP] * 5 + [_I, _I, _I, _VP],
+        "final_exp_launch": [_VP] * 4 + [_I, _I, _I, _VP],
     }),
 }
 _HEADERS = ("fq_field.cuh", "fq_group.cuh")
@@ -457,3 +482,95 @@ def g1_dbl(spec, p: Tuple[torch.Tensor, ...]) -> Tuple[torch.Tensor, ...]:
             ins[0].device.index, stream))
         G1_DBL.count(batch)
     return outs
+
+
+# -- the pairing kernels (csrc/pairing.cu) ------------------------------------
+
+_programs: Dict[Tuple[str, int, torch.device], Tuple] = {}
+
+
+def _program(name: str, spec, device: torch.device):
+    """The named pairing kernel's program table, its constants and its
+    register count, on `device` (made and uploaded once)."""
+    key = (name, id(spec), device)
+    got = _programs.get(key)
+    if got is None:
+        from .tower_program import VERSION, program  # it imports the tower
+        prog = program(name, spec)
+        if int(prog.words[0]) != VERSION:
+            raise RuntimeError(f"{name}: program version mismatch")
+        consts = prog.consts if len(prog.consts) else np.zeros(
+            (1, spec.n), np.int32)
+        got = (torch.as_tensor(prog.words, device=device),
+               torch.as_tensor(consts, device=device), prog.nregs)
+        _programs[key] = got
+    return got
+
+
+def _check_tower(name: str, spec, operands, batch: int) -> None:
+    """Validate pairing-kernel operands: (tensor, Fq elements per lane)
+    pairs, int32, contiguous, one CUDA device, `batch` lanes."""
+    dev = operands[0][0].device
+    for t, k in operands:
+        if t.device.type != "cuda" or t.device != dev:
+            raise ValueError(f"{name}: operands must be CUDA tensors on one "
+                             f"device, got {t.device}")
+        if t.dtype != torch.int32 or not t.is_contiguous():
+            raise ValueError(f"{name}: operands must be contiguous int32")
+        if t.shape[0] != batch or t.numel() != batch * k * spec.n:
+            raise ValueError(f"{name}: operand of shape {tuple(t.shape)} is "
+                             f"not ({batch}, {k} x {spec.n}) limbs")
+
+
+def _tower_launch(name: str, kernel: Kernel, spec, ins, batch: int,
+                  extra=(), program: str = None) -> torch.Tensor:
+    _check_spec(spec)
+    dev = ins[0].device
+    handle = _prepare("pairing", spec, dev)
+    words, consts, nregs = _program(program or name, spec, dev)
+    out = torch.empty((batch, 2, 3, 2, spec.n), dtype=torch.int32,
+                      device=dev)
+    if batch:
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        launch = getattr(handle, f"{name}_launch")
+        _raise_if(handle, name, launch(
+            out.data_ptr(), *(t.data_ptr() for t in ins),
+            *(t.data_ptr() for t in extra), words.data_ptr(),
+            consts.data_ptr(), nregs, batch, dev.index, stream))
+        kernel.count(batch)
+    return out
+
+
+def miller_product(spec, px, py, qx, qy, skip) -> torch.Tensor:
+    """Per-pair Miller loops on the card (csrc/pairing.cu): px, py (P, n);
+    qx, qy (P, 2, n) int32; skip (P,) bool → (P, 2, 3, 2, n), the
+    conjugated Miller value, Fq12 one where skip; bit-identical to
+    pairing.miller_loop + FQ12.where(skip, one, f)."""
+    pairs = px.shape[0]
+    _check_tower("miller_product", spec,
+                 [(px, 1), (py, 1), (qx, 2), (qy, 2)], pairs)
+    if skip.dtype != torch.bool or skip.shape != (pairs,) or \
+            skip.device != px.device or not skip.is_contiguous():
+        raise ValueError("miller_product: skip must be a contiguous "
+                         f"({pairs},) bool tensor on {px.device}")
+    return _tower_launch("miller_product", MILLER_PRODUCT, spec,
+                         (px, py, qx, qy), pairs, extra=(skip,))
+
+
+def fq12_mul(spec, x, y) -> torch.Tensor:
+    """Batched Fq12 product on the card: x, y (B, 2, 3, 2, n) int32 →
+    (B, 2, 3, 2, n), bit-identical to FQ12.mul."""
+    batch = x.shape[0]
+    _check_tower("fq12_mul", spec, [(x, 12), (y, 12)], batch)
+    return _tower_launch("fq12_mul", FQ12_MUL, spec, (x, y), batch)
+
+
+def final_exp(spec, f, program: str = "final_exp") -> torch.Tensor:
+    """f^(3(p¹²−1)/r) on the card: (B, 2, 3, 2, n) int32 → the same
+    shape, bit-identical to FQ12.final_exponentiation.  `program` may
+    name another 12-in, 12-out program of ops/tower_program.py for the
+    same kernel ("fq_inv": the measuring chain)."""
+    batch = f.shape[0]
+    _check_tower("final_exp", spec, [(f, 12)], batch)
+    return _tower_launch("final_exp", FINAL_EXP, spec, (f,), batch,
+                         program=program)

@@ -10,7 +10,9 @@ per launch of fq_mul (B = 8192 and 131072 lanes, the main path's heaviest
 launch size), g1_add (B = 8192 and tree-sum sizes down to one lane) and
 g1_dbl (B = 8192), from CUDA events over 100 back-to-back launches held
 behind a spin kernel so that the host's issue rate does not enter, and
-ptxas's registers and spills of each kernel.  Inputs are random loose
+ptxas's registers and spills of each kernel; where the checkout has the
+pairing kernels (csrc/pairing.cu), also miller_product (2 and 5 pairs),
+fq12_mul (1 lane) and final_exp (1 lane), over 20 launches.  Inputs are random loose
 limbs from --seed (the point formulas are polynomials, so any loose
 coordinates time them).  Giving the roots as parent, change, change,
 parent compares two versions on one card within one run.  Needs a GPU.
@@ -26,6 +28,8 @@ import sys
 
 SIZES = {"fq_mul": (8192, 131072), "g1_add": (1, 16, 256, 4096, 8192),
          "g1_dbl": (8192,)}
+PAIRING_SIZES = {"miller_product": (2, 5), "fq12_mul": (1,),
+                 "final_exp": (1,)}
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
@@ -57,6 +61,19 @@ def worker(root: str, seed: int, clock_hz: float) -> dict:
                    "g1_add": lambda: kernels.g1_add(fq, a, b),
                    "g1_dbl": lambda: kernels.g1_dbl(fq, a)}[name]
             out[f"{name}@{lanes}"] = time_ms(torch, run, 100, clock_hz)
+    if not hasattr(kernels, "miller_product"):
+        return out
+    for name, sizes in PAIRING_SIZES.items():
+        for lanes in sizes:
+            a = loose(lanes * 12).reshape(lanes, 2, 3, 2, fq.n)
+            b = loose(lanes * 12).reshape(lanes, 2, 3, 2, fq.n)
+            p, q = loose(lanes), loose(lanes * 2).reshape(lanes, 2, fq.n)
+            skip = torch.zeros(lanes, dtype=torch.bool, device="cuda")
+            run = {"miller_product": lambda: kernels.miller_product(
+                       fq, p, p, q, q, skip),
+                   "fq12_mul": lambda: kernels.fq12_mul(fq, a, b),
+                   "final_exp": lambda: kernels.final_exp(fq, a)}[name]
+            out[f"{name}@{lanes}"] = time_ms(torch, run, 20, clock_hz)
     return out
 
 

@@ -144,3 +144,63 @@ def test_provider_on_the_card_matches_the_oracle(cuda):
     want = [c.verify_signature(s, h, v) for c, s, v in
             zip(cpus, sigs, voters)]
     assert prov.verify_batch(sigs, [h] * 6, voters) == want
+
+
+# -- the pairing kernels (csrc/pairing.cu) -----------------------------------------
+
+def _tower_loose(rng, *shape):
+    x = rng.integers(0, dev.FQ.loose_max + 1, size=shape + (dev.FQ.n,),
+                     dtype=np.int32)
+    x.reshape((shape[0], -1, dev.FQ.n))[0] = dev.FQ.loose_max
+    return torch.from_numpy(x)
+
+
+@pytest.mark.parametrize("pairs", (1, 2, 5, 8))
+def test_miller_product_kernel_matches_plain(cuda, pairs):
+    from consensus_overlord_tpu_torch.ops import pairing as pr
+    rng = np.random.default_rng(100 + pairs)
+    px, py = (_tower_loose(rng, pairs).to(cuda) for _ in range(2))
+    qx, qy = (_tower_loose(rng, pairs, 2).to(cuda) for _ in range(2))
+    skip = torch.arange(pairs, device=cuda) % 3 == 1
+    before = kernels.MILLER_PRODUCT.launches
+    got = kernels.miller_product(dev.FQ, px, py, qx, qy, skip)
+    assert kernels.MILLER_PRODUCT.launches == before + 1
+    f = pr.miller_loop(px, py, qx, qy)
+    assert torch.equal(got, pr.FQ12.where(skip, pr.FQ12.one_like(f), f))
+
+
+@pytest.mark.parametrize("batch", (1, 2, 5, 8))
+def test_fq12_mul_kernel_matches_plain(cuda, batch):
+    from consensus_overlord_tpu_torch.ops import pairing as pr
+    rng = np.random.default_rng(200 + batch)
+    x, y = (_tower_loose(rng, batch, 2, 3, 2).to(cuda) for _ in range(2))
+    assert torch.equal(pr.fq12_mul(x, y), pr.FQ12.mul(x, y))
+
+
+def test_final_exp_kernel_matches_plain(cuda):
+    from consensus_overlord_tpu_torch.ops import pairing as pr
+    f = _tower_loose(np.random.default_rng(300), 1, 2, 3, 2).to(cuda)
+    assert torch.equal(pr.final_exponentiation(f),
+                       pr.FQ12.final_exponentiation(f))
+
+
+def test_device_pairing_verdicts_on_the_card(cuda):
+    """The staged pair on the card (all three kernels) against the host
+    oracle: a true and a forged relation at the 2-pair rung."""
+    from consensus_overlord_tpu_torch.ops import pairing as pr
+    sk, h = 0xBEEF, oracle.hash_to_g1(b"\x09" * 32)
+    pk, sig = oracle.g2_mul(oracle.G2_GEN, sk), oracle.g1_mul(h, sk)
+    neg_g2 = (oracle.G2_GEN[0], oracle.fq2_neg(oracle.G2_GEN[1]))
+    for s, want in ((sig, True), (oracle.g1_mul(sig, 3), False)):
+        g1 = [torch.from_numpy(a).to(cuda)
+              for a in pr.g1_affine_from_oracle([s, h])]
+        g2 = [torch.from_numpy(a).to(cuda)
+              for a in pr.g2_affine_from_oracle([neg_g2, pk])]
+        mask = torch.ones(2, dtype=torch.bool, device=cuda)
+        before = kernels.counts()
+        got = pr.multi_pairing_is_one_staged(*g1, *g2, mask)
+        after = kernels.counts()
+        assert bool(got) is want is oracle.multi_pairing_is_one(
+            [(s, neg_g2), (h, pk)])
+        assert all(after[k.name] == before[k.name] + 1
+                   for k in kernels.PAIRING_KERNELS)

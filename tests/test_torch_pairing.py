@@ -1,0 +1,251 @@
+"""The port's pairing tower (consensus_overlord_tpu_torch/ops/fq6.py,
+fq12.py, pairing.py) against the JAX package's on the CPU, and the
+pairing kernels' programs (ops/tower_program.py) against the plain
+tower.
+
+* Every Fq6/Fq12 op and the Miller step's pieces: the same numpy-seeded
+  loose limbs (one element of each batch at the loose bound) through the
+  JAX package's jitted op and the port's, bit-identical loose limbs
+  (integer arithmetic, tolerance 0).  Only small jits are compiled here:
+  the reference's whole Miller loop and final exponentiation are its
+  heaviest compiles and are not.
+* Whole pairings (plain tower) against the host oracle: the cubed
+  pairing value, bilinearity, and multi-pairing verdicts with infinity
+  and masked pairs.  A full pairing costs about 2 s on one CPU thread, so
+  each test batches its pairings into one call.
+* The three kernels' programs, run by ``run_program`` (the kernels'
+  walk of the same table, one field call per stage and kind), equal the
+  plain versions bit for bit, and keep the invariants the CUDA
+  interpreter relies on.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from consensus_overlord_tpu.ops import pairing as jpr
+from consensus_overlord_tpu_torch.crypto import bls12381 as oracle
+from consensus_overlord_tpu_torch.ops import kernels
+from consensus_overlord_tpu_torch.ops import pairing as tpr
+from consensus_overlord_tpu_torch.ops import tower_program as tprog
+from consensus_overlord_tpu_torch.ops.field import BLS12_381_FQ
+
+# One intra-op thread: several worker processes share the cores.
+torch.set_num_threads(1)
+
+N = BLS12_381_FQ.n
+L = BLS12_381_FQ.loose_max
+NEG_G2 = (oracle.G2_GEN[0], oracle.fq2_neg(oracle.G2_GEN[1]))
+
+
+def loose(rng, *shape):
+    """Random loose limbs of shape + (n,); element 0 at the loose bound."""
+    x = rng.integers(0, L + 1, size=shape + (N,), dtype=np.int32)
+    x.reshape((shape[0], -1, N))[0] = L
+    return x
+
+
+def same(jax_out, torch_out) -> bool:
+    return np.array_equal(np.asarray(jax_out), torch_out.numpy())
+
+
+def both(fn, *arrays):
+    """fn over the JAX package's tower (jitted) and the port's, on the same
+    numpy inputs."""
+    want = jax.jit(lambda *a: fn(jpr, *a))(*(jnp.asarray(a) for a in arrays))
+    got = fn(tpr, *(torch.from_numpy(a) for a in arrays))
+    return want, got
+
+
+FQ6_OPS = {
+    "add": lambda m, x, y, b0, b1: m.FQ6.add(x, y),
+    "sub": lambda m, x, y, b0, b1: m.FQ6.sub(x, y),
+    "neg": lambda m, x, y, b0, b1: m.FQ6.neg(x),
+    "mul_xi": lambda m, x, y, b0, b1: m.FQ6.mul_xi(x),
+    "mul": lambda m, x, y, b0, b1: m.FQ6.mul(x, y),
+    "sq": lambda m, x, y, b0, b1: m.FQ6.sq(x),
+    "mul_v": lambda m, x, y, b0, b1: m.FQ6.mul_v(x),
+    "mul_by_01": lambda m, x, y, b0, b1: m.FQ6.mul_by_01(x, b0, b1),
+    "mul_by_1": lambda m, x, y, b0, b1: m.FQ6.mul_by_1(x, b1),
+    "inv": lambda m, x, y, b0, b1: m.FQ6.inv(x),
+}
+
+
+@pytest.mark.parametrize("op", list(FQ6_OPS))
+def test_fq6_op_bit_identical(op):
+    rng = np.random.default_rng(61)
+    want, got = both(FQ6_OPS[op], loose(rng, 3, 3, 2), loose(rng, 3, 3, 2),
+                     loose(rng, 3, 2), loose(rng, 3, 2))
+    assert same(want, got)
+
+
+FQ12_OPS = {
+    "add": lambda m, x, y, a0, a1, a4: m.FQ12.add(x, y),
+    "mul": lambda m, x, y, a0, a1, a4: m.FQ12.mul(x, y),
+    "sq": lambda m, x, y, a0, a1, a4: m.FQ12.sq(x),
+    "conj": lambda m, x, y, a0, a1, a4: m.FQ12.conj(x),
+    "inv": lambda m, x, y, a0, a1, a4: m.FQ12.inv(x),
+    "mul_by_014": lambda m, x, y, a0, a1, a4: m.FQ12.mul_by_014(x, a0, a1,
+                                                                a4),
+    "cyc_sq": lambda m, x, y, a0, a1, a4: m.FQ12.cyc_sq(x),
+    "cyc_pow_abs": lambda m, x, y, a0, a1, a4: m.FQ12.cyc_pow_abs(x, 0b10110),
+    "frobenius": lambda m, x, y, a0, a1, a4: m.FQ12.frobenius(x),
+}
+
+
+@pytest.mark.parametrize("op", list(FQ12_OPS))
+def test_fq12_op_bit_identical(op):
+    rng = np.random.default_rng(67)
+    want, got = both(FQ12_OPS[op], loose(rng, 2, 2, 3, 2),
+                     loose(rng, 2, 2, 3, 2), loose(rng, 2, 2),
+                     loose(rng, 2, 2), loose(rng, 2, 2))
+    assert same(want, got)
+
+
+MILLER_STEP = {
+    "dbl_line": lambda m, x, y, z, qx, qy, f, px, py: m._dbl_line(
+        m.Point(x, y, z)),
+    "add_line": lambda m, x, y, z, qx, qy, f, px, py: m._add_line(
+        m.Point(x, y, z), qx, qy),
+    "sparse_line": lambda m, x, y, z, qx, qy, f, px, py: m._sparse_line(
+        f, x, y, z, px, py),
+    "g2_dbl": lambda m, x, y, z, qx, qy, f, px, py: tuple(m.G2.dbl(
+        m.Point(x, y, z))),
+    "g2_add": lambda m, x, y, z, qx, qy, f, px, py: tuple(m.G2.add(
+        m.Point(x, y, z), m.G2.from_affine(qx, qy))),
+}
+
+
+@pytest.mark.parametrize("piece", list(MILLER_STEP))
+def test_miller_step_piece_bit_identical(piece):
+    """One Miller step's pieces on the step's operands: R projective, Q
+    affine (Fq2), the accumulator f, P affine (Fq)."""
+    rng = np.random.default_rng(71)
+    args = [loose(rng, 2, 2) for _ in range(5)]
+    args += [loose(rng, 2, 2, 3, 2), loose(rng, 2), loose(rng, 2)]
+    want, got = both(MILLER_STEP[piece], *args)
+    want = want if isinstance(want, tuple) else (want,)
+    got = got if isinstance(got, tuple) else (got,)
+    assert len(want) == len(got)
+    assert all(same(w, g) for w, g in zip(want, got))
+
+
+def _pairs(g1, g2):
+    px, py, pinf = tpr.g1_affine_from_oracle(g1)
+    qx, qy, qinf = tpr.g2_affine_from_oracle(g2)
+    return tuple(torch.from_numpy(a) for a in (px, py, pinf, qx, qy, qinf))
+
+
+def test_pairing_matches_the_host_and_is_bilinear():
+    """e(aP, Q) and e(P, aQ) in one batched call: the first equals the
+    host oracle's pairing (the shared cube) canonically, and the two are
+    equal."""
+    a = 0x5EED
+    p = oracle.g1_mul(oracle.G1_GEN, 0x1234567)
+    q = oracle.g2_mul(oracle.G2_GEN, 0x7654321)
+    px, py, _, qx, qy, _ = _pairs([oracle.g1_mul(p, a), p],
+                                  [q, oracle.g2_mul(q, a)])
+    e = tpr.FQ12.to_int_pairs(tpr.pairing(px, py, qx, qy))
+    assert e[0] == oracle.pairing(q, oracle.g1_mul(p, a))
+    assert e[0] == e[1]
+
+
+def test_multi_pairing_verdicts_match_the_host():
+    """Three flushes padded to the 5-pair rung, as one batched staged call
+    (pairs on the leading axis, flushes on the next): a true relation, a
+    forged one (a valid point that is not the signature) and a true one
+    with an infinity pair and masked padding — the verdicts of the host
+    oracle, which skips None pairs."""
+    sk, h = 0xBEEF, oracle.hash_to_g1(b"\x07" * 32)
+    pk = oracle.g2_mul(oracle.G2_GEN, sk)
+    sig = oracle.g1_mul(h, sk)
+    flushes = [[(sig, NEG_G2), (h, pk)],
+               [(oracle.g1_mul(sig, 5), NEG_G2), (h, pk)],
+               [(sig, NEG_G2), (h, pk), (None, pk)]]
+    cols = []
+    for pairs in flushes:
+        pad = [(h, pk)] * (5 - len(pairs))
+        cols.append(_pairs([p for p, _ in pairs + pad],
+                           [q for _, q in pairs + pad]))
+    px, py, pinf, qx, qy, qinf = (torch.stack(t, 1) for t in zip(*cols))
+    mask = torch.tensor([[i < len(f) for f in flushes] for i in range(5)])
+    got = tpr.multi_pairing_is_one_staged(px, py, pinf, qx, qy, qinf, mask)
+    want = [oracle.multi_pairing_is_one(f) for f in flushes]
+    assert got.tolist() == want == [True, False, True]
+
+
+# -- the kernels' programs --------------------------------------------------------
+
+@pytest.mark.parametrize("name", ["fq12_mul", "miller_product", "final_exp",
+                                  "fq_inv"])
+def test_program_invariants(name):
+    """What csrc/pairing.cu relies on: stage starts are even and each op
+    kind of a stage comes in pairs (the two lane groups of a warp run one
+    kind); no op of a stage reads a register another op of the stage
+    writes; registers, operands and kinds fit their fields."""
+    prog = tprog.program(name, BLS12_381_FQ)
+    assert int(prog.words[0]) == tprog.VERSION
+    starts = prog.stage_start
+    assert starts[0] == 0 and starts[-1] == prog.nops
+    assert all(s % 2 == 0 for s in starts)
+    assert np.all(prog.kind[0::2] == prog.kind[1::2])
+    assert prog.kind.max() < len(tprog.KINDS)
+    regs = [prog.dst, prog.a, prog.b, prog.const_regs, prog.in_regs,
+            prog.out_regs]
+    assert max(int(r.max()) for r in regs if r.size) < prog.nregs
+    trash = prog.nregs - 1  # padding ops write a register of their own
+    for s in range(prog.nstages):
+        lo, hi = starts[s], starts[s + 1]
+        written = set(prog.dst[lo:hi].tolist()) - {trash}
+        assert not written & set(prog.a[lo:hi].tolist())
+        assert not written & set(prog.b[lo:hi].tolist())
+        assert len(written) == int((prog.dst[lo:hi] != trash).sum())
+    assert len(prog.consts) == len(prog.const_regs)
+
+
+def test_fq12_mul_program_matches_plain():
+    rng = np.random.default_rng(73)
+    x, y = (torch.from_numpy(loose(rng, 3, 2, 3, 2)) for _ in range(2))
+    prog = tprog.program("fq12_mul", BLS12_381_FQ)
+    ins = torch.cat([x.reshape(3, 12, N), y.reshape(3, 12, N)], 1)
+    got = tprog.run_program(prog, BLS12_381_FQ, ins).reshape(x.shape)
+    assert torch.equal(got, tpr.FQ12.mul(x, y))
+
+
+def test_miller_product_program_matches_plain():
+    """Two pairs of loose limbs: the program's Miller loop is the plain
+    miller_loop bit for bit (the kernel writes one for a skipped pair
+    itself)."""
+    rng = np.random.default_rng(79)
+    px, py = (torch.from_numpy(loose(rng, 2)) for _ in range(2))
+    qx, qy = (torch.from_numpy(loose(rng, 2, 2)) for _ in range(2))
+    prog = tprog.program("miller_product", BLS12_381_FQ)
+    ins = torch.cat([px[:, None], py[:, None], qx, qy], 1)
+    got = tprog.run_program(prog, BLS12_381_FQ, ins)
+    assert torch.equal(got.reshape(2, 2, 3, 2, N),
+                       tpr.miller_loop(px, py, qx, qy))
+
+
+def test_final_exp_program_matches_plain():
+    rng = np.random.default_rng(83)
+    f = torch.from_numpy(loose(rng, 1, 2, 3, 2))
+    prog = tprog.program("final_exp", BLS12_381_FQ)
+    got = tprog.run_program(prog, BLS12_381_FQ, f.reshape(1, 12, N))
+    assert torch.equal(got.reshape(f.shape),
+                       tpr.FQ12.final_exponentiation(f))
+
+
+def test_pairing_wrappers_take_the_plain_path_on_the_cpu():
+    """On CPU tensors the staged entry points run the plain tower and
+    launch nothing; the kernels' own wrappers refuse CPU tensors."""
+    rng = np.random.default_rng(89)
+    x, y = (torch.from_numpy(loose(rng, 2, 2, 3, 2)) for _ in range(2))
+    before = kernels.counts()
+    assert torch.equal(tpr.fq12_mul(x, y), tpr.FQ12.mul(x, y))
+    assert kernels.counts() == before
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.fq12_mul(BLS12_381_FQ, x, y)
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.final_exp(BLS12_381_FQ, x)
