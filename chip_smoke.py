@@ -38,10 +38,12 @@ plain version and the least time the card could take for the same work:
 the field and G1 kernels at B = 8192 and at their most frequent and
 lane-heaviest launch sizes in a warm round (g1_add at every size of the
 round); the pairing kernels (phase pairing_kernels) on seeded loose
-limbs at 2 and 5 pairs, the Fq12 multiply at 1, 2, 4 and 5 lanes, the
-final exponentiation at 1, each also beside its latency bound (its
-dependent product stages times one product stage's time, measured on
-an inversion chain).  Each phase prints one JSON line; the kernels
+limbs at 1, 2 and 5 pairs, the Fq12 multiply at 1, 2, 4 and 5 lanes,
+the final exponentiation at 1 and 3, each also beside its latency bound
+(its multiply depth times one dependent product of the field core on
+one warp, timed by the measuring kernel tower_probe_kernel with no
+program table), with each program's epochs, steps per warp, registers
+and shared memory.  Each phase prints one JSON line; the kernels
 line, the card's name and power limit, and the contract line close the
 output.  A profiled warm round, last so that the profiler touches no
 host-clock phase, reports the device-busy time by kernel.  Any failure exits non-zero.  Exits 2 without a result when no
@@ -313,8 +315,8 @@ def pairing_checks(torch, launches: dict, per_flush: dict, card: dict,
                    seed: int, ptxas: dict):
     """Each pairing kernel vs its plain version on the card (torch.equal)
     on seeded loose limbs (a row of each operand at the loose bound), at
-    2 and 5 pairs, 1, 2, 4 and 5 Fq12 products and one final
-    exponentiation; timed with CUDA events beside the plain version, the
+    1, 2 and 5 pairs, 1, 2, 4 and 5 Fq12 products and 1 and 3 final
+    exponentiations; timed with CUDA events beside the plain version, the
     throughput bound and the latency bound.  Returns the kernels-line rows
     (at the main path's single-hash sizes: 2 pairs, one product, one
     exponentiation) and the phase line, with each kernel's registers
@@ -332,14 +334,30 @@ def pairing_checks(torch, launches: dict, per_flush: dict, card: dict,
         t.view(-1, fq.n)[0] = fq.loose_max
         return t
 
-    # One dependent product stage at one lane: the inversion chain.
+    # The latency bound: one dependent product of the field core on one
+    # warp (the measuring kernel, no program table; the difference of a
+    # 2k- and a k-product chain, so the launch drops out) times a
+    # program's multiply depth.
+    x, y = loose(1), loose(1)
+    k = tower_program.CHAIN
+    want = x
+    for _ in range(k):
+        want = fq.mul_plain(want, y)
+    if not torch.equal(kernels.tower_probe(fq, x, y, "mul", k, 32), want):
+        fail("the field-core probe differs from the plain products")
+    product_ms = (time_ms(torch, lambda: kernels.tower_probe(
+        fq, x, y, "mul", 2 * k, 32), 20, card["clock_hz"]) - time_ms(
+        torch, lambda: kernels.tower_probe(fq, x, y, "mul", k, 32), 20,
+        card["clock_hz"])) / k
+    # The earlier yardstick, kept beside it: one product step of the
+    # interpreter itself on the fq_inv chain.
     chain = loose(1, 2, 3, 2)
     inv = kernels.final_exp(fq, chain, program="fq_inv")
     if not torch.equal(inv.view(12, fq.n)[0], fq.inv(chain.view(12, fq.n)[0])):
         fail("the fq_inv chain differs from the plain inversion")
-    stages = tower_program.program("fq_inv", fq).stats["mul_stages"]
-    stage_ms = time_ms(torch, lambda: kernels.final_exp(
-        fq, chain, program="fq_inv"), 20, card["clock_hz"]) / stages
+    inv_depth = tower_program.program("fq_inv", fq).stats["mul_depth"]
+    inv_step_ms = time_ms(torch, lambda: kernels.final_exp(
+        fq, chain, program="fq_inv"), 20, card["clock_hz"]) / inv_depth
     ops = lane_ops(fq)
 
     def cases(name, lanes):
@@ -360,8 +378,8 @@ def pairing_checks(torch, launches: dict, per_flush: dict, card: dict,
         return (lambda: pr.final_exponentiation(f),
                 lambda: pr.FQ12.final_exponentiation(f))
 
-    sizes = {"miller_product": (2, 5), "fq12_mul": (1, 2, 4, 5),
-             "final_exp": (1,)}
+    sizes = {"miller_product": (1, 2, 5), "fq12_mul": (1, 2, 4, 5),
+             "final_exp": (1, 3)}
     path_size = {"miller_product": 2, "fq12_mul": 1, "final_exp": 1}
     measured, rows = [], []
     for name in PAIRING:
@@ -379,7 +397,7 @@ def pairing_checks(torch, launches: dict, per_flush: dict, card: dict,
                    "ms": time_ms(torch, run, 20, card["clock_hz"]),
                    "plain_ms": time_ms(torch, plain, 2, card["clock_hz"]),
                    "bound_ms": bound_ms, "bound_by": bound_by,
-                   "latency_bound_ms": prog["mul_stages"] * stage_ms}
+                   "latency_bound_ms": prog["mul_depth"] * product_ms}
             row["binding_bound"] = ("latency" if row["latency_bound_ms"] >
                                     bound_ms else bound_by)
             measured.append(row)
@@ -392,9 +410,14 @@ def pairing_checks(torch, launches: dict, per_flush: dict, card: dict,
                                  "max_abs_err", "ms", "plain_ms",
                                  "bound_ms", "bound_by")},
                              "library_ms": None})
-    phase = {"phase": "pairing_kernels", "product_stage_ms": stage_ms,
-             "programs": {name: tower_program.program(name, fq).stats
-                          for name in PAIRING},
+    programs = {}
+    for name in PAIRING:
+        st = dict(tower_program.program(name, fq).stats)
+        st["smem_bytes"] = kernels.tower_smem_bytes(st["registers"])
+        st["latency_bound_ms"] = st["mul_depth"] * product_ms
+        programs[name] = st
+    phase = {"phase": "pairing_kernels", "product_ms": product_ms,
+             "fq_inv_step_ms": inv_step_ms, "programs": programs,
              "ptxas": {name: ptxas[name + "_kernel"] for name in PAIRING},
              "launches_per_flush": per_flush, "kernels": measured}
     return rows, phase

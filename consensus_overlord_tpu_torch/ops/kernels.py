@@ -64,6 +64,9 @@ FQ_MUL_GROUP = 8
 G1_ADD_GROUP = 16
 G1_DBL_GROUP = 16
 TOWER_GROUP = 16
+#: Threads of a pairing kernel's block (TOWER_THREADS in csrc/pairing.cu):
+#: its programs are built for TOWER_THREADS // 32 warps.
+TOWER_THREADS = 512
 GROUP_SIZES = tuple(sorted({FQ_MUL_GROUP, G1_ADD_GROUP, G1_DBL_GROUP,
                             TOWER_GROUP}))
 
@@ -256,6 +259,7 @@ _LIBS = {
         "miller_product_launch": [_VP] * 8 + [_I, _I, _I, _VP],
         "fq12_mul_launch": [_VP] * 5 + [_I, _I, _I, _VP],
         "final_exp_launch": [_VP] * 4 + [_I, _I, _I, _VP],
+        "tower_probe_launch": [_VP] * 3 + [_I, _I, _I, _I, _VP],
     }),
 }
 _HEADERS = ("fq_field.cuh", "fq_group.cuh")
@@ -489,6 +493,17 @@ def g1_dbl(spec, p: Tuple[torch.Tensor, ...]) -> Tuple[torch.Tensor, ...]:
 _programs: Dict[Tuple[str, int, torch.device], Tuple] = {}
 
 
+def tower_smem_bytes(nregs: int) -> int:
+    """Dynamic shared memory of a pairing-kernel launch (csrc/pairing.cu
+    tower_prepare): the lane groups' product scratch, then `nregs`
+    registers of one Fq element each."""
+    _, W = group_layout(TOWER_GROUP)
+    lane_ints = 3 * W  # FqGroup::LANE_INTS: W of b, then 2W of a
+    g = TOWER_GROUP
+    stride = lane_ints + (3 * g - lane_ints % (2 * g)) % (2 * g)
+    return 4 * (TOWER_THREADS // g * stride + nregs * W)
+
+
 def _program(name: str, spec, device: torch.device):
     """The named pairing kernel's program table, its constants and its
     register count, on `device` (made and uploaded once)."""
@@ -496,7 +511,7 @@ def _program(name: str, spec, device: torch.device):
     got = _programs.get(key)
     if got is None:
         from .tower_program import VERSION, program  # it imports the tower
-        prog = program(name, spec)
+        prog = program(name, spec, TOWER_THREADS // 32)
         if int(prog.words[0]) != VERSION:
             raise RuntimeError(f"{name}: program version mismatch")
         consts = prog.consts if len(prog.consts) else np.zeros(
@@ -574,3 +589,26 @@ def final_exp(spec, f, program: str = "final_exp") -> torch.Tensor:
     _check_tower("final_exp", spec, [(f, 12)], batch)
     return _tower_launch("final_exp", FINAL_EXP, spec, (f,), batch,
                          program=program)
+
+
+#: tower_probe modes, in the order of csrc/pairing.cu's tower_probe_kernel.
+PROBE_MODES = ("mul", "add", "barrier")
+
+
+def tower_probe(spec, x, y, mode: str, k: int, threads: int) -> torch.Tensor:
+    """The pairing kernels' field-core measuring kernel (csrc/pairing.cu
+    tower_probe_kernel), no program table: on one block of `threads`
+    threads, every lane group runs k dependent ops of one lane ("mul":
+    x <- x*y, "add": x <- x + y), or the block runs k barriers
+    ("barrier").  x, y (1, n) int32 on the card; returns the chain's
+    result (1, n).  A measuring tool: no main path launches it, so it
+    keeps no launch count."""
+    _check("tower_probe", (x, y), spec.n)
+    _check_spec(spec)
+    handle = _prepare("pairing", spec, x.device)
+    out = torch.empty_like(x)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    _raise_if(handle, "tower_probe", handle.tower_probe_launch(
+        out.data_ptr(), x.data_ptr(), y.data_ptr(), PROBE_MODES.index(mode),
+        k, threads, x.device.index, stream))
+    return out

@@ -177,9 +177,11 @@ def test_fq12_mul_kernel_matches_plain(cuda, batch):
     assert torch.equal(pr.fq12_mul(x, y), pr.FQ12.mul(x, y))
 
 
-def test_final_exp_kernel_matches_plain(cuda):
+@pytest.mark.parametrize("batch", (1, 3))
+def test_final_exp_kernel_matches_plain(cuda, batch):
     from consensus_overlord_tpu_torch.ops import pairing as pr
-    f = _tower_loose(np.random.default_rng(300), 1, 2, 3, 2).to(cuda)
+    f = _tower_loose(np.random.default_rng(300 + batch), batch, 2, 3,
+                     2).to(cuda)
     assert torch.equal(pr.final_exponentiation(f),
                        pr.FQ12.final_exponentiation(f))
 

@@ -14,9 +14,10 @@ tower.
   and masked pairs.  A full pairing costs about 2 s on one CPU thread, so
   each test batches its pairings into one call.
 * The three kernels' programs, run by ``run_program`` (the kernels'
-  walk of the same table, one field call per stage and kind), equal the
-  plain versions bit for bit, and keep the invariants the CUDA
-  interpreter relies on.
+  walk of the same table: epoch by epoch, warp by warp, one field call a
+  step, the warps of an epoch in any order), equal the plain versions bit
+  for bit, keep the invariants the CUDA interpreter relies on, and have
+  no race between warps or lane groups.
 """
 
 import jax
@@ -178,31 +179,105 @@ def test_multi_pairing_verdicts_match_the_host():
 
 # -- the kernels' programs --------------------------------------------------------
 
-@pytest.mark.parametrize("name", ["fq12_mul", "miller_product", "final_exp",
-                                  "fq_inv"])
+PROGRAMS = ["fq12_mul", "miller_product", "final_exp", "fq_inv"]
+
+
+@pytest.mark.parametrize("name", PROGRAMS)
 def test_program_invariants(name):
-    """What csrc/pairing.cu relies on: stage starts are even and each op
-    kind of a stage comes in pairs (the two lane groups of a warp run one
-    kind); no op of a stage reads a register another op of the stage
-    writes; registers, operands and kinds fit their fields."""
+    """What csrc/pairing.cu relies on (program format 2): both lane groups
+    of a warp run one kind at every step and share its barrier flag; each
+    warp's stream ends every epoch with one barrier step; registers,
+    operands and kinds fit their fields; padding ops write the trash
+    register, which nothing else writes or reads; the steps are 16-byte
+    aligned in the table."""
     prog = tprog.program(name, BLS12_381_FQ)
     assert int(prog.words[0]) == tprog.VERSION
-    starts = prog.stage_start
-    assert starts[0] == 0 and starts[-1] == prog.nops
-    assert all(s % 2 == 0 for s in starts)
-    assert np.all(prog.kind[0::2] == prog.kind[1::2])
-    assert prog.kind.max() < len(tprog.KINDS)
-    regs = [prog.dst, prog.a, prog.b, prog.const_regs, prog.in_regs,
-            prog.out_regs]
+    assert prog.warps == tprog.WARPS == kernels.TOWER_THREADS // 32
+    starts = prog.warp_start
+    assert starts[0] == 0 and starts[-1] == prog.nsteps
+    assert np.all(np.diff(starts) >= prog.nepochs)
+    header = tprog.HEADER + len(prog.const_regs) + len(prog.in_regs) + \
+        len(prog.out_regs) + prog.warps + 1
+    assert (len(prog.words) - 4 * prog.nsteps) % 4 == 0
+    assert 0 <= len(prog.words) - 4 * prog.nsteps - header < 4
+    words = prog.words[-4 * prog.nsteps:].reshape(-1, 2, 2)
+    assert np.all(words[:, 0, 0] & tprog.BARRIER ==
+                  words[:, 1, 0] & tprog.BARRIER)
+    assert np.all(prog.kind[:, 0] == prog.kind[:, 1])
+    nop = prog.kind[:, 0] == tprog.NOP
+    assert prog.kind[~nop].max() < len(tprog.KINDS)
+    for w in range(prog.warps):
+        flags = prog.barrier[starts[w]:starts[w + 1]]
+        assert flags.sum() == prog.nepochs and (flags[-1] or not len(flags))
+    real = ~nop
+    trash = prog.nregs - 1
+    regs = [prog.dst[real], prog.a[real], prog.b[real], prog.const_regs,
+            prog.in_regs, prog.out_regs]
     assert max(int(r.max()) for r in regs if r.size) < prog.nregs
-    trash = prog.nregs - 1  # padding ops write a register of their own
-    for s in range(prog.nstages):
-        lo, hi = starts[s], starts[s + 1]
-        written = set(prog.dst[lo:hi].tolist()) - {trash}
-        assert not written & set(prog.a[lo:hi].tolist())
-        assert not written & set(prog.b[lo:hi].tolist())
-        assert len(written) == int((prog.dst[lo:hi] != trash).sum())
+    assert np.all(prog.dst[real][:, 0] != trash)
+    assert not np.any(prog.a[real] == trash) and \
+        not np.any(prog.b[real] == trash)
+    pad = real & (prog.dst[:, 1] == trash)
+    assert np.all(prog.a[pad, 1] == prog.a[pad, 0])
+    assert trash not in set(prog.const_regs) | set(prog.in_regs) | \
+        set(prog.out_regs)
     assert len(prog.consts) == len(prog.const_regs)
+
+
+@pytest.mark.parametrize("name", PROGRAMS)
+def test_program_hazards(name):
+    """No race in the schedule: a register that a warp writes in an epoch
+    is read and written by no other warp in that epoch (so a value
+    crosses warps only at a block barrier, and a register is reused by
+    another warp only after one); the two lane groups of a step neither
+    read each other's destination nor share one, so a value crosses
+    lane groups only at the __syncwarp between steps."""
+    prog = tprog.program(name, BLS12_381_FQ)
+    real = prog.kind[:, 0] != tprog.NOP
+    trash = prog.nregs - 1
+    e, w = prog.epoch[real], prog.warp[real]
+    key = lambda r: e[:, None] * prog.nregs + r  # noqa: E731
+    written = prog.dst[real] != trash
+    wkeys, wwarp = key(prog.dst[real])[written], np.broadcast_to(
+        w[:, None], written.shape)[written]
+    rkeys = np.concatenate([key(prog.a[real]).ravel(),
+                            key(prog.b[real]).ravel()])
+    rwarp = np.concatenate([np.repeat(w, 2), np.repeat(w, 2)])
+    keys = np.concatenate([wkeys, rkeys])
+    warps = np.concatenate([wwarp, rwarp])
+    touched = np.isin(keys, wkeys)
+    lo, hi = {}, {}
+    for k, ww in zip(keys[touched].tolist(), warps[touched].tolist()):
+        lo[k] = min(lo.get(k, ww), ww)
+        hi[k] = max(hi.get(k, ww), ww)
+    assert lo == hi
+    d, a, b = prog.dst[real], prog.a[real], prog.b[real]
+    for g in (0, 1):
+        mine = d[:, g] != trash
+        assert not np.any(mine & ((d[:, g] == a[:, 1 - g]) |
+                                  (d[:, g] == b[:, 1 - g])))
+    assert not np.any((d[:, 0] == d[:, 1]))
+
+
+@pytest.mark.parametrize("order", ["reverse", 7])
+@pytest.mark.parametrize("name", ["fq12_mul", "miller_product"])
+def test_program_in_any_warp_order_matches_plain(name, order):
+    """run_program visits the warps of each epoch in reverse and in a
+    seeded shuffled order (the kernel fixes no order between warps): the
+    result is the plain version's all the same."""
+    rng = np.random.default_rng(97)
+    prog = tprog.program(name, BLS12_381_FQ)
+    if name == "fq12_mul":
+        x, y = (torch.from_numpy(loose(rng, 2, 2, 3, 2)) for _ in range(2))
+        ins = torch.cat([x.reshape(2, 12, N), y.reshape(2, 12, N)], 1)
+        want = tpr.FQ12.mul(x, y)
+    else:
+        px, py = (torch.from_numpy(loose(rng, 1)) for _ in range(2))
+        qx, qy = (torch.from_numpy(loose(rng, 1, 2)) for _ in range(2))
+        ins = torch.cat([px[:, None], py[:, None], qx, qy], 1)
+        want = tpr.miller_loop(px, py, qx, qy)
+    got = tprog.run_program(prog, BLS12_381_FQ, ins, order=order)
+    assert torch.equal(got.reshape(want.shape), want)
 
 
 def test_fq12_mul_program_matches_plain():
