@@ -17,14 +17,39 @@ calls:
   bad_lanes    a single-hash and a 3-hash batch carrying wrong signers,
                malformed encodings, unknown voters and an order-3
                component, verdict for verdict against CpuBlsCrypto;
-  mixed        verify_batch over 3 vote hashes (the k=3 rung).
+  mixed        verify_batch over 3 vote hashes (the k=3 rung);
+  qc_aggregate aggregate_signatures over all 8192 signatures of one hash,
+               byte-equal to CpuBlsCrypto's (g1_validate_sum: fq_mul and
+               g1_add), and a 64-lane batch with a malformed signature
+               must raise CryptoError;
+  qc_verify    verify_aggregated_signature of that aggregate: True, and
+               False for a wrong hash and for a swapped voter, each from
+               the device pairing (g2_sum_rows, then miller_product and
+               final_exp) with no host-oracle pairing.
 
 Every batch pairs on the card (device pairing is on by default there):
 the Miller product and the final exponentiation of csrc/pairing.cu.
 Kernel launch counts, and their lanes per launch, are read around the
-main path and per phase; a kernel of the path that was never launched
-fails the run.  The build's ptxas report (registers, spills) is printed,
-and a spill in any kernel fails the run.  Then
+main path, per phase and per QC call (each with the counts set to 0 just
+before); a kernel of a path that was never launched fails the run.  Each
+of these phases prints the provider's breaker state, device failures and
+host pairing fallbacks, and any failure, open breaker or fallback fails
+the run.  The build's ptxas report (registers, spills) is printed, and a
+spill in any kernel fails the run.  Then
+
+  degraded         the degraded mode at 64 lanes on fresh providers, with
+                   faults raised in Python only: the breaker's fault
+                   window on verify_batch, aggregate_signatures and
+                   verify_aggregated_signature (it must open at its
+                   threshold and close on one clean call after the
+                   cooldown), a kernel set whose device pairing raises
+                   (one counted host pairing), and a readback stalled
+                   past a 1-s dispatch deadline (DispatchTimeout; clearing
+                   the stall must end the abandoned readback thread);
+                   every verdict against CpuBlsCrypto; then a device
+                   step failing with a RuntimeError that was not
+                   injected must raise to the caller with nothing fed to
+                   the breaker;
 
   pairing_ab       the warm single-hash round with device pairing off,
                    on, on, off (seconds, verifies/s), and the device
@@ -482,7 +507,8 @@ def pairing_ab(torch, prov, s0, sigs, h, pks, sync, card) -> dict:
                         "host_ms": host_ms,
                         "host_oracle_ms": (time.perf_counter() - t) * 100}
     return {"phase": "pairing_ab", "votes": n, "rounds": rounds,
-            "flush": flush}
+            "flush": flush, "pairing_off": provider_health(off, "pairing_ab"),
+            **provider_health(prov, "pairing_ab")}
 
 
 def crosscheck(prov, s0, sigs, h, pks) -> dict:
@@ -513,7 +539,8 @@ def crosscheck(prov, s0, sigs, h, pks) -> dict:
     if xp.pairing_mismatches:  # each one logged as an error
         fail(f"crosscheck: {xp.pairing_mismatches} device/host mismatches")
     return {"phase": "crosscheck", "votes": n, "seconds": secs,
-            "mismatches": xp.pairing_mismatches}
+            "mismatches": xp.pairing_mismatches,
+            **provider_health(xp, "crosscheck")}
 
 
 _PTXAS_NAME = re.compile(r"(fq_mul_kernel|g1_dbl_kernel|g1_add_kernel|"
@@ -582,6 +609,297 @@ def trace_round(torch, prov, sigs, h, pks) -> dict:
 
 # -- main path -------------------------------------------------------------------
 
+def provider_health(prov, phase: str) -> dict:
+    """A provider's breaker and fallback counters for a phase line; a
+    device failure, a breaker that is not closed or a host pairing in a
+    main-path or QC phase fails the run."""
+    st = prov.breaker.status()
+    doc = {"breaker": st["state"], "device_failures": st["total_failures"],
+           "pairing_host_fallbacks": prov.pairing_host_fallbacks}
+    if (st["state"] != "closed" or st["total_failures"]
+            or prov.pairing_host_fallbacks):
+        fail(f"{phase}: the device path degraded "
+             f"({st['last_failure_reason']}): {doc}")
+    return doc
+
+
+def _launches_of(kernels, fn):
+    """fn() with every launch count set to 0 just before and read just
+    after: (its result, launches by kernel, launches by lane bucket)."""
+    kernels.reset_counts()
+    out = fn()
+    return out, kernels.counts(), {
+        k: kernels.size_buckets(v) for k, v in kernels.sizes().items() if v}
+
+
+def drive_qc(torch, prov, s0, h, pks, sigs, sync):
+    """The QC paths through the provider's entry points at the deployment
+    size, one JSON line each; returns each phase's launches.
+
+      qc_aggregate  aggregate_signatures over every validator's signature
+                    on one hash, byte-equal to CpuBlsCrypto's; a 64-lane
+                    batch with one malformed signature raises CryptoError;
+      qc_verify     verify_aggregated_signature of that aggregate: True,
+                    False for a wrong hash, False with one voter swapped
+                    for another validator's key, each against the host
+                    oracle's check; every verdict from the device pairing
+                    (no host-oracle pairing in the provider).
+
+    Each call is timed on the host clock beside the host oracle's own
+    call; the split times each device step alone, the inversion that ends
+    it, and the device pairing's time per call (CUDA events around its
+    launches)."""
+    from consensus_overlord_tpu_torch.crypto import bls12381 as oracle
+    from consensus_overlord_tpu_torch.crypto import cuda_provider as cp
+    from consensus_overlord_tpu_torch.crypto.provider import (
+        CpuBlsCrypto, CryptoError)
+    from consensus_overlord_tpu_torch.ops import bls12381_groups as dev
+    from consensus_overlord_tpu_torch.ops import kernels
+
+    n = len(pks)
+    cpu = CpuBlsCrypto(s0)
+
+    def timed(fn):
+        sync()
+        t = time.perf_counter()
+        out = fn()
+        sync()
+        return out, time.perf_counter() - t
+
+    def step_seconds(step, *args):
+        """One device step alone, ending in a synchronise (warm: the
+        provider's call ran it first)."""
+        return timed(lambda: step(*args))[1]
+
+    one = torch.ones((1, dev.FQ.n), dtype=torch.int32, device=prov.device)
+    inversion_s = step_seconds(dev.FQ.inv, one)
+
+    # qc_aggregate.
+    (agg, secs), launches, lanes = _launches_of(
+        kernels, lambda: timed(lambda: prov.aggregate_signatures(sigs, pks)))
+    t = time.perf_counter()
+    want = cpu.aggregate_signatures(sigs, pks)
+    oracle_s = time.perf_counter() - t
+    if agg != want:
+        fail("qc_aggregate: the aggregate differs from CpuBlsCrypto's")
+    idle = [k for k in ("fq_mul", "g1_add") if launches[k] == 0]
+    if idle:
+        fail(f"qc_aggregate never launched {idle}")
+    bad = list(sigs[:64])
+    bad[9] = b"\x00" * 48  # no compressed flag
+
+    def raises(fn) -> float:
+        t = time.perf_counter()
+        try:
+            fn()
+        except CryptoError:
+            return time.perf_counter() - t
+        fail("qc_aggregate: a malformed signature did not raise CryptoError")
+
+    bad_s = raises(lambda: prov.aggregate_signatures(bad, pks[:64]))
+    bad_oracle_s = raises(lambda: cpu.aggregate_signatures(bad, pks[:64]))
+    parsed = dev.parse_g1_compressed(list(sigs))
+    ins = [torch.as_tensor(a, device=prov.device) for a in (
+        parsed.x, parsed.sign, parsed.infinity, parsed.wellformed)]
+    emit({"phase": "qc_aggregate", "signatures": n, "seconds": secs,
+          "oracle_seconds": oracle_s, "launches": launches,
+          "launch_lanes": lanes,
+          "split": {"g1_validate_sum_s": step_seconds(
+                        cp.g1_validate_sum, *ins),
+                    "inversion_s": inversion_s},
+          "bad_batch": {"lanes": 64, "raised": "CryptoError",
+                        "seconds": bad_s, "oracle_seconds": bad_oracle_s},
+          **provider_health(prov, "qc_aggregate")})
+    qc = {"qc_aggregate": launches}
+
+    # qc_verify: every device pairing timed by CUDA events; the host
+    # oracle's pairings counted (there must be none).
+    events, host_pairings = [], []
+
+    class TimedPairing(cp._SingleChipKernels):
+        @staticmethod
+        def multi_pairing(*a):
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = cp._SingleChipKernels.multi_pairing(*a)
+            stop.record()
+            events.append((start, stop))
+            return out
+
+    real_pairing = cp.oracle.multi_pairing_is_one
+
+    def counted(pairs):
+        host_pairings.append(len(pairs))
+        return real_pairing(pairs)
+
+    swapped = list(pks)
+    swapped[5] = pks[6]
+    cases = [("valid", h, pks, True),
+             ("wrong_hash", hashlib.sha256(h).digest(), pks, False),
+             ("swapped_voter", h, swapped, False)]
+    # The host oracle's QC check first, without its per-key subgroup
+    # check (every key is a multiple of G2 by construction; with it the
+    # check takes minutes at this size).
+    oracle_checks = []
+    for name, hh, voters, want_v in cases:
+        t = time.perf_counter()
+        want_o = oracle.aggregate_verify_same_message(
+            voters, hh, agg, check_subgroup=False)
+        oracle_checks.append((want_o, time.perf_counter() - t))
+    prov._kernels, cp.oracle.multi_pairing_is_one = TimedPairing, counted
+    try:
+        calls = []
+        for (name, hh, voters, want_v), (want_o, oracle_s) in zip(
+                cases, oracle_checks):
+            (got, secs), launches, lanes = _launches_of(
+                kernels, lambda: timed(
+                    lambda: prov.verify_aggregated_signature(agg, hh, voters)))
+            if got is not want_v or want_o is not want_v:
+                fail(f"qc_verify {name}: {got} (oracle {want_o}), "
+                     f"want {want_v}")
+            calls.append({"case": name, "verdict": got, "seconds": secs,
+                          "oracle_seconds": oracle_s, "launches": launches,
+                          "launch_lanes": lanes})
+    finally:
+        prov._kernels = cp._SingleChipKernels
+        cp.oracle.multi_pairing_is_one = real_pairing
+    torch.cuda.synchronize()
+    pairing_ms = [a.elapsed_time(b) for a, b in events]
+    if host_pairings or len(pairing_ms) != len(cases):
+        fail(f"qc_verify: {len(host_pairings)} host pairings, "
+             f"{len(pairing_ms)} device pairings in {len(cases)} calls")
+    for c in calls:
+        idle = [k for k in ("fq_mul", "miller_product", "final_exp")
+                if c["launches"][k] == 0]
+        if idle:
+            fail(f"qc_verify {c['case']} never launched {idle}")
+    rows = torch.tensor([prov._pk.index[v] for v in pks], device=prov.device)
+    mask = torch.ones(n, dtype=torch.bool, device=prov.device)
+    emit({"phase": "qc_verify", "voters": n, "calls": calls,
+          "host_pairings": len(host_pairings),
+          "split": {"g2_sum_rows_s": step_seconds(
+                        cp.g2_sum_rows, rows, mask, *prov._pk_device()),
+                    "inversion_s": inversion_s,
+                    "device_pairing_ms": pairing_ms},
+          **provider_health(prov, "qc_verify")})
+    qc["qc_verify"] = {k: sum(c["launches"][k] for c in calls)
+                       for k in calls[0]["launches"]}
+    return qc
+
+
+def degraded(prov, s0, h, pks, sigs) -> dict:
+    """Degraded mode at 64 lanes on fresh providers, every verdict against
+    CpuBlsCrypto: (1) the breaker's fault window fails verify_batch,
+    aggregate_signatures and verify_aggregated_signature, the third
+    failure opens the breaker, and after the window is cleared and the
+    cooldown has passed one clean device call closes it; (2) a kernel set
+    whose device pairing raises pairs on the host, counted once; (3) a
+    stall of the readback past dispatch_deadline_s = 1 s ends in a
+    DispatchTimeout, and clearing the stall ends the abandoned readback
+    thread; (4) a device step that fails with anything but an injected
+    fault raises to the caller, with nothing fed to the breaker.  Faults
+    are raised in Python only."""
+    import threading
+
+    from consensus_overlord_tpu_torch.crypto import cuda_provider as cp
+    from consensus_overlord_tpu_torch.crypto.breaker import (
+        CircuitBreaker, InjectedDeviceFault)
+    from consensus_overlord_tpu_torch.crypto.provider import CpuBlsCrypto
+
+    n = 64
+    cpu = CpuBlsCrypto(s0)
+    good, voters = list(sigs[:n]), list(pks[:n])
+    bad = list(good)
+    bad[3], bad[4] = bad[4], bad[3]  # wrong signers
+    want = cpu.verify_batch(bad, [h] * n, voters)
+    agg = cpu.aggregate_signatures(good, voters)
+    steps = []
+
+    p = cp.CudaBlsCrypto(s0, breaker=CircuitBreaker(failure_threshold=3,
+                                                     cooldown_s=0.5))
+    p.update_pubkeys(voters)
+    p.breaker.inject_faults(60.0)
+    got = (p.verify_batch(bad, [h] * n, voters),
+           p.aggregate_signatures(good, voters),
+           p.verify_aggregated_signature(agg, h, voters))
+    if got != (want, agg, True):
+        fail("degraded: verdicts under injected faults differ from "
+             "CpuBlsCrypto")
+    opened = p.degraded_status()
+    if opened["state"] != "open" or opened["total_failures"] != 3:
+        fail(f"degraded: the breaker did not open at 3 failures: {opened}")
+    p.breaker.clear_injected_faults()
+    time.sleep(0.6)
+    if p.verify_batch(bad, [h] * n, voters) != want:
+        fail("degraded: the probe's verdicts differ from CpuBlsCrypto")
+    if p.breaker.state != "closed":
+        fail("degraded: a clean device call did not close the breaker")
+    steps.append({"step": "inject_faults", "at_open": opened,
+                  "after_probe": p.degraded_status()})
+
+    class FailingPairing(cp._SingleChipKernels):
+        fault = InjectedDeviceFault
+
+        @classmethod
+        def multi_pairing(cls, *_a):
+            raise cls.fault("pairing device fault")
+
+    p = cp.CudaBlsCrypto(s0)
+    p.load_pubkey_cache(prov._pk)
+    p._kernels = FailingPairing
+    if p.verify_batch(bad, [h] * n, voters) != want:
+        fail("degraded: host-paired verdicts differ from CpuBlsCrypto")
+    if p.pairing_host_fallbacks != 1:
+        fail(f"degraded: {p.pairing_host_fallbacks} pairing fallbacks, "
+             "want 1")
+    steps.append({"step": "failing_pairing", "status": p.degraded_status()})
+
+    p = cp.CudaBlsCrypto(s0, dispatch_deadline_s=1.0)
+    p.load_pubkey_cache(prov._pk)
+    before = set(threading.enumerate())
+    p.inject_dcn_stall(30.0)
+    t = time.perf_counter()
+    got = p.verify_batch(bad, [h] * n, voters)
+    secs = time.perf_counter() - t
+    p.inject_dcn_stall(0.0)
+    abandoned = [w for w in threading.enumerate()
+                 if w not in before and w.name.startswith("dispatch-watchdog")]
+    for w in abandoned:
+        w.join(5.0)
+    alive = sum(w.is_alive() for w in abandoned)
+    if len(abandoned) != 1 or alive:
+        fail(f"degraded: want the stall's one abandoned readback thread "
+             f"ended by the clear; found {len(abandoned)}, {alive} alive")
+    st = p.degraded_status()
+    if got != want or "DispatchTimeout" not in st["last_failure_reason"]:
+        fail(f"degraded: the stalled batch gave {got == want} verdicts, "
+             f"reason {st['last_failure_reason']!r}")
+    steps.append({"step": "dcn_stall", "seconds": secs,
+                  "deadline_s": p._deadline_for(cp._pad_to(n)),
+                  "abandoned_threads_ended": len(abandoned), "status": st})
+
+    class RealFault(FailingPairing):
+        fault = RuntimeError
+
+    p = cp.CudaBlsCrypto(s0)
+    p.load_pubkey_cache(prov._pk)
+    p._kernels = RealFault
+    try:
+        p.verify_batch(bad, [h] * n, voters)
+        fail("degraded: a device fault that was not injected was "
+             "swallowed")
+    except RuntimeError as e:
+        raised = type(e).__name__
+    st = p.degraded_status()
+    if st["total_failures"] or p.pairing_host_fallbacks:
+        fail(f"degraded: a device fault fed the breaker: {st}")
+    steps.append({"step": "real_fault_propagates", "raised": raised,
+                  "status": st})
+    return {"phase": "degraded", "lanes": n, "steps": steps}
+
+
+
 def drive_main_path(prov, s0, hashes, pks, sigs, sync):
     """The main path through the provider's entry points, one JSON line
     per phase; returns each phase's kernel launches, and its launches by
@@ -616,7 +934,8 @@ def drive_main_path(prov, s0, hashes, pks, sigs, sync):
         fail("device-validated pubkeys differ from the oracle's points")
     emit({"phase": "pubkeys", "keys": n, "seconds": secs,
           "cache_rows": int(prov._pk_device()[0].shape[0]),
-          "launches": phase_counts["pubkeys"]})
+          "launches": phase_counts["pubkeys"],
+          **provider_health(prov, "pubkeys")})
 
     # Single-hash round at the deployment size, cold then warm.
     h0 = hashes[0]
@@ -628,7 +947,8 @@ def drive_main_path(prov, s0, hashes, pks, sigs, sync):
         emit({"phase": rnd, "votes": n, "seconds": secs,
               "verifies_per_s": n / secs, "launches": phase_counts[rnd],
               "launch_lanes": {k: kernels.size_buckets(v) for k, v in
-                               phase_sizes[rnd].items()}})
+                               phase_sizes[rnd].items()},
+              **provider_health(prov, rnd)})
 
     # Bad lanes, verdict for verdict against the host oracle provider.
     cpu = CpuBlsCrypto(s0)
@@ -664,7 +984,8 @@ def drive_main_path(prov, s0, hashes, pks, sigs, sync):
         fail("bad-lane verdicts differ from CpuBlsCrypto")
     emit({"phase": "bad_lanes", "lanes": [64, 96], "seconds": secs,
           "rejected": [got_s.count(False), got_m.count(False)],
-          "launches": phase_counts["bad_lanes"]})
+          "launches": phase_counts["bad_lanes"],
+          **provider_health(prov, "bad_lanes")})
 
     # Mixed hashes: the k = 3 rung at the deployment size.
     hx = [hashes[i % 3] for i in range(n)]
@@ -675,7 +996,8 @@ def drive_main_path(prov, s0, hashes, pks, sigs, sync):
             not cpu.verify_signature(sx[i], hx[i], pks[i]) for i in sample):
         fail("mixed-hash verdicts differ from CpuBlsCrypto")
     emit({"phase": "mixed", "votes": n, "hashes": 3, "seconds": secs,
-          "verifies_per_s": n / secs, "launches": phase_counts["mixed"]})
+          "verifies_per_s": n / secs, "launches": phase_counts["mixed"],
+          **provider_health(prov, "mixed")})
 
     return phase_counts, phase_sizes
 
@@ -743,6 +1065,9 @@ def main(argv=None) -> int:
             fail(f"phase {name} never launched {idle}")
     per_flush = {k: {"single_hash": phase_counts["single_hash"][k],
                      "mixed": phase_counts["mixed"][k]} for k in PAIRING}
+    qc = drive_qc(torch, prov, s0, hashes[0], pks, sigs[0],
+                  torch.cuda.synchronize)
+    emit(degraded(prov, s0, hashes[0], pks, sigs[0]))
 
     # Host-clock phases first: the profiled round runs last.
     emit(pairing_ab(torch, prov, s0, sigs[0], hashes[0], pks,
@@ -761,6 +1086,8 @@ def main(argv=None) -> int:
     emit({"phase": "kernels_at_main_path_sizes", "kernels": sized})
     pair_rows, pair_phase = pairing_checks(torch, totals, per_flush, card,
                                            args.seed, ptxas)
+    pair_phase["launches_per_qc_phase"] = {
+        k: {phase: qc[phase][k] for phase in qc} for k in PAIRING}
     emit(pair_phase)
     emit(trace_round(torch, prov, sigs[0], hashes[0], pks))
     emit({"kernels": rows + pair_rows})

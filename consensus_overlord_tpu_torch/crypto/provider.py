@@ -1,15 +1,18 @@
-"""The host BLS12-381 provider (CPU oracle) and the provider error type.
+"""The provider protocol, the host BLS12-381 provider (CPU oracle) and
+the provider error type.
 
 The pieces of consensus_overlord_tpu/crypto/provider.py this port needs,
-kept as its own copy: `CryptoError` (reference error.rs:20-44
+kept as its own copy: `CryptoProvider` (what the engine needs from a
+crypto backend: the Overlord `Crypto` trait surface, reference
+src/consensus.rs:385-463), `CryptoError` (reference error.rs:20-44
 `ConsensusError::CryptoErr`) and `CpuBlsCrypto`, the reference-faithful
-min-sig provider (reference src/consensus.rs:385-463) whose per-signature
-verify is the exact fallback of the device paths.
+min-sig provider whose per-signature verify is the exact fallback of the
+device paths.
 """
 
 from __future__ import annotations
 
-from typing import List, Sequence
+from typing import List, Protocol, Sequence, runtime_checkable
 
 from ..core.sm3 import sm3_hash
 from . import bls12381 as bls
@@ -17,6 +20,30 @@ from . import bls12381 as bls
 
 class CryptoError(Exception):
     """Crypto failure (reference error.rs:20-44 `ConsensusError::CryptoErr`)."""
+
+
+@runtime_checkable
+class CryptoProvider(Protocol):
+    """What the engine needs from a crypto backend."""
+
+    @property
+    def pub_key(self) -> bytes:
+        """This node's identity: serialized public key bytes, doubling as its
+        validator address (reference src/consensus.rs:352-357)."""
+        ...
+
+    def hash(self, data: bytes) -> bytes: ...
+
+    def sign(self, hash32: bytes) -> bytes: ...
+
+    def verify_signature(self, signature: bytes, hash32: bytes,
+                         voter: bytes) -> bool: ...
+
+    def aggregate_signatures(self, signatures: Sequence[bytes],
+                             voters: Sequence[bytes]) -> bytes: ...
+
+    def verify_aggregated_signature(self, agg_sig: bytes, hash32: bytes,
+                                    voters: Sequence[bytes]) -> bool: ...
 
 
 class CpuBlsCrypto:

@@ -345,6 +345,17 @@ def build_all(spec=None) -> float:
     return time.perf_counter() - t0
 
 
+def load_all(device: torch.device, spec=None) -> None:
+    """Build every library that is not built yet (in parallel), load each
+    and upload the field tables to `device`: what a provider on a CUDA
+    device does first, so that a failed build or load raises there."""
+    spec = spec or _default_spec()
+    if any((lib, id(spec)) not in _loaded for lib in _LIBS):
+        build_all(spec)
+    for lib in _LIBS:
+        _prepare(lib, spec, device)
+
+
 def build_log(lib: str, spec=None) -> str:
     """nvcc's output (the ptxas register and spill report) of the built
     library."""

@@ -206,3 +206,67 @@ def test_device_pairing_verdicts_on_the_card(cuda):
             [(s, neg_g2), (h, pk)])
         assert all(after[k.name] == before[k.name] + 1
                    for k in kernels.PAIRING_KERNELS)
+
+
+# -- the provider's construction and its QC device steps ---------------------------
+
+def test_provider_raises_when_the_kernel_build_fails(cuda, monkeypatch,
+                                                     tmp_path):
+    """On a CUDA device the constructor builds and loads every kernel
+    library first: with nvcc pointing at a missing binary and an empty
+    build directory, CudaBlsCrypto raises (nothing reaches the
+    breaker)."""
+    from consensus_overlord_tpu_torch.crypto.cuda_provider import (
+        CudaBlsCrypto)
+
+    monkeypatch.setattr(kernels, "_nvcc", lambda: str(tmp_path / "nvcc"))
+    monkeypatch.setattr(kernels, "BUILD_DIR", str(tmp_path / "_build"))
+    monkeypatch.setattr(kernels, "_loaded", {})
+    monkeypatch.setattr(kernels, "_tables_set", set())
+    with pytest.raises((RuntimeError, OSError)):
+        CudaBlsCrypto(0x1111 + 7, device=cuda)
+
+
+def _qc_inputs(lanes: int):
+    """Signature fields of `lanes` lanes (1024 distinct signatures tiled,
+    every 97th lane off-curve, every 101st at infinity) and a 1024-row
+    pubkey cache with `lanes` row indices, the last 5 lanes masked."""
+    rng = np.random.default_rng(71)
+    h = oracle.hash_to_g1(b"\x05" * 32)
+    sig, pk = oracle.g1_mul(h, 0x51), oracle.g2_mul(oracle.G2_GEN, 0x51)
+    sigs, pks = [], []
+    for _ in range(1024):
+        sigs.append(oracle.g1_compress(sig))
+        pks.append(pk)
+        sig, pk = oracle.g1_add(sig, h), oracle.g2_add(pk, oracle.G2_GEN)
+    blobs = [sigs[i % 1024] for i in range(lanes)]
+    x = 1
+    while pow(x ** 3 + 4, (oracle.P - 1) // 2, oracle.P) == 1:
+        x += 1
+    for i in range(0, lanes, 97):
+        blobs[i] = bytes([0x80]) + x.to_bytes(48, "big")[1:]
+    for i in range(50, lanes, 101):
+        blobs[i] = bytes([0xC0]) + b"\x00" * 47
+    parsed = dev.parse_g1_compressed(blobs)
+    g1 = tuple(torch.from_numpy(a) for a in (
+        parsed.x, parsed.sign, parsed.infinity, parsed.wellformed))
+    rows = torch.from_numpy(rng.integers(0, 1024, lanes))
+    mask = torch.arange(lanes) < lanes - 5
+    return g1, (rows, mask) + tuple(dev.g2_from_oracle(pks))
+
+
+def test_qc_device_steps_on_the_card_match_the_cpu(cuda):
+    """g1_validate_sum and g2_sum_rows at B = 8192 on the card (fq_mul and
+    g1_add kernels) are torch.equal to their run on the CPU (the plain
+    versions)."""
+    from consensus_overlord_tpu_torch.crypto import cuda_provider as cp
+
+    g1, g2 = _qc_inputs(8192)
+    before = kernels.counts()
+    for step, ins in ((cp.g1_validate_sum, g1), (cp.g2_sum_rows, g2)):
+        got = step(*(t.to(cuda) for t in ins))
+        want = step(*ins)
+        assert all(torch.equal(a.cpu(), b) for a, b in zip(got, want))
+    after = kernels.counts()
+    assert after["fq_mul"] > before["fq_mul"]
+    assert after["g1_add"] > before["g1_add"]

@@ -168,6 +168,11 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                     top = name.split(".")[0]
                     assert top not in ("jax", "jaxlib",
                                        "consensus_overlord_tpu"), (path, name)
+    for module in ("consensus_overlord_tpu_torch.crypto.breaker",
+                   "consensus_overlord_tpu_torch.crypto.cuda_provider",
+                   "consensus_overlord_tpu_torch.obs.fleet",
+                   "consensus_overlord_tpu_torch.obs.prof"):
+        assert module in modules, module
     code = ("import importlib, sys\n"
             f"for m in {sorted(modules)!r}:\n"
             "    importlib.import_module(m)\n"
@@ -179,6 +184,30 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stdout + out.stderr
+
+
+def test_provider_satisfies_the_crypto_provider_protocol():
+    """CudaBlsCrypto has every member of the port's CryptoProvider (the
+    JAX package's crypto/provider.py:31-52, copied), each method with the
+    same signature, and the port's protocol names the JAX one's members."""
+    import inspect
+
+    from consensus_overlord_tpu.crypto import provider as jprovider
+    from consensus_overlord_tpu_torch.crypto.provider import CryptoProvider
+
+    members = [m for m in vars(CryptoProvider)
+               if not m.startswith("_")]
+    assert sorted(members) == sorted(
+        m for m in vars(jprovider.CryptoProvider) if not m.startswith("_"))
+    assert len(members) == 6
+    for m in members:
+        want = getattr(CryptoProvider, m)
+        got = getattr(CudaBlsCrypto, m)
+        if isinstance(want, property):
+            assert isinstance(got, property), m
+        else:
+            assert inspect.signature(got) == inspect.signature(want), m
+    assert isinstance(CudaBlsCrypto(KEYS[0], device="cpu"), CryptoProvider)
 
 
 @pytest.mark.slow
