@@ -50,6 +50,25 @@ spill in any kernel fails the run.  Then
                    step failing with a RuntimeError that was not
                    injected must raise to the caller with nothing fed to
                    the breaker;
+  pinned_upload    uploads issued behind 200 ms of queued work, at 20 KB
+                   to 10 MB and as one warm round's upload set:
+                   CudaBlsCrypto._to_dev (through pinned memory above
+                   1.25 MB) must return at once, a pageable copy is timed
+                   beside it; then the warm round under the parent's
+                   pageable upload, pinning every upload, and _to_dev;
+  sim              the port's validator fleet in process (sim/harness.py
+                   SimNetwork, as `sim.run --crypto bls` builds it) at
+                   deployment bls64-frontier: 64 validators, each on its
+                   own CudaBlsCrypto("cuda"), the batching frontier on
+                   (device and QC threshold 8, 50-ms linger), one warm
+                   height, then SIM_HEIGHTS measured with the launch
+                   counts set to 0 just before and read just after,
+                   then one height profiled (torch.profiler's CUDA
+                   activity against its wall, and a host stack sampler);
+                   every committed proof is audited by the host oracle,
+                   and a missed height, an idle kernel of the path, no
+                   device batch, a breaker failure, a host pairing, a
+                   frontier re-verify or a device fault fails the run;
 
   pairing_ab       the warm single-hash round with device pairing off,
                    on, on, off (seconds, verifies/s), and the device
@@ -607,6 +626,398 @@ def trace_round(torch, prov, sigs, h, pks) -> dict:
                              for name, v in ours.items()}}
 
 
+
+# -- the fleet -------------------------------------------------------------------
+
+#: Deployment bls64-frontier: the scheme of BASELINE.json config 4
+#: (BLS12-381 aggregated signatures, unweighted), the fleet of config 2
+#: (64 validators) in one process on one shard with the batching frontier
+#: on, the sim's device threshold (consensus_overlord_tpu/sim/run.py:351;
+#: QC threshold equal to it) and the linger of the JAX package's BLS
+#: device row (BASELINE.md:381).  Cut from 4,096 validators to 64: one
+#: Python process carries every engine (BASELINE.md:378, :386-388).
+SIM_VALIDATORS = 64
+SIM_WARM_HEIGHTS = 1
+SIM_HEIGHTS = 3
+#: The block interval.  At 2 s the fleet never committed height 1 on an
+#: H100 80GB HBM3 (700 W): its host work outran the round timers and
+#: every node verified 63 chokes a round.  At 10 s no view change.
+SIM_INTERVAL_MS = 10000
+SIM_THRESHOLD = 8
+SIM_LINGER_MS = 50.0
+#: How long one height may take before the phase fails.  Not a pacing
+#: parameter: a height takes the interval plus its work.
+SIM_TIMEOUT_S = 120.0
+#: The kernels every measured height must launch (fq12_mul is reported).
+SIM_KERNELS = ("fq_mul", "g1_add", "g1_dbl", "miller_product", "final_exp")
+
+
+#: Upload sizes the pinned_upload phase issues behind queued work: 20 KB
+#: (the arrays of a 64-lane QC are smaller), the 8192-lane round's
+#: signature limbs (1.25 MB, the provider's _PAGEABLE_MAX_BYTES), and 2,
+#: 4 and 8 times that.
+UPLOAD_BYTES = (20_480,) + tuple(k * 8192 * 39 * 4 for k in (1, 2, 4, 8))
+
+
+def pinned_upload(torch, prov, card, sigs, h, pks) -> dict:
+    """Uploads issued while the card is busy (200 ms of queued work): at
+    each of UPLOAD_BYTES a copy from pageable memory and one through
+    CudaBlsCrypto._to_dev, then the arrays one warm 8192-lane
+    single-hash round uploads, issued back to back both ways.  _to_dev
+    must return long before the queued work ends every time.  Then the
+    warm round itself is timed under three upload rules, in the order
+    pageable, pin_all, to_dev, to_dev, pin_all, pageable: every upload
+    from pageable memory, every upload through pinned memory, and
+    _to_dev's rule (pinned above _PAGEABLE_MAX_BYTES)."""
+    import numpy as np
+
+    from consensus_overlord_tpu_torch.crypto import cuda_provider
+
+    queued_ms = 200.0
+    cycles = int(queued_ms * 1e-3 * card["clock_hz"])
+    device = prov.device
+
+    def pageable(a):
+        return torch.as_tensor(a).to(device, non_blocking=True)
+
+    def pin_all(a):
+        return torch.as_tensor(a).pin_memory().to(device, non_blocking=True)
+
+    def behind_queue(upload, arrays) -> float:
+        torch.cuda.synchronize()
+        torch.cuda._sleep(cycles)
+        t0 = time.perf_counter()
+        got = [upload(a) for a in arrays]
+        host_ms = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        for g, a in zip(got, arrays):
+            if not torch.equal(g.cpu(), torch.as_tensor(a)):
+                fail("pinned_upload: an uploaded copy differs")
+        return host_ms
+
+    out = {"phase": "pinned_upload", "queued_ms": queued_ms,
+           "pageable_max_bytes": cuda_provider._PAGEABLE_MAX_BYTES,
+           "sizes": {}}
+    for nbytes in UPLOAD_BYTES:
+        arr = np.arange(nbytes // 4, dtype=np.int32)
+        prov._to_dev(arr)  # the pinned pool's first block
+        out["sizes"][nbytes] = {
+            "pageable_host_ms": behind_queue(pageable, [arr]),
+            "to_dev_host_ms": behind_queue(prov._to_dev, [arr])}
+    n = len(pks)
+    recorded = []
+    real = prov._to_dev
+    prov._to_dev = lambda a: (recorded.append(np.array(a)), real(a))[1]
+    try:
+        prov.verify_batch(sigs, [h] * n, pks)
+    finally:
+        del prov._to_dev
+    out["round_uploads"] = {
+        "arrays": len(recorded),
+        "bytes": sum(a.nbytes for a in recorded),
+        "pageable_host_ms": behind_queue(pageable, recorded),
+        "to_dev_host_ms": behind_queue(prov._to_dev, recorded)}
+    rules = {"pageable": pageable, "pin_all": pin_all, "to_dev": None}
+    rounds = {rule: [] for rule in rules}
+    for rule in ("pageable", "pin_all", "to_dev", "to_dev", "pin_all",
+                 "pageable"):
+        if rules[rule] is not None:
+            prov._to_dev = rules[rule]
+        try:
+            t0 = time.perf_counter()
+            got = prov.verify_batch(sigs, [h] * n, pks)
+            rounds[rule].append(time.perf_counter() - t0)
+        finally:
+            prov.__dict__.pop("_to_dev", None)
+        if got != [True] * n:
+            fail(f"pinned_upload: the {rule} round rejected valid votes")
+    out["round_s"] = rounds
+    waited = [k for k, v in out["sizes"].items()
+              if v["to_dev_host_ms"] > queued_ms / 2]
+    if waited or out["round_uploads"]["to_dev_host_ms"] > queued_ms / 2:
+        fail(f"pinned_upload: _to_dev waited for the card: {out}")
+    return out
+
+
+def _fleet_totals(net) -> dict:
+    from consensus_overlord_tpu_torch.sim.run import sum_status
+
+    stats = [n.frontier.stats for n in net.nodes]
+    router = net.router.stats()
+    return {"status": sum_status(n.crypto.degraded_status()
+                                 for n in net.nodes),
+            "batches": sum(s.batches for s in stats),
+            "requests": sum(s.requests for s in stats),
+            "max_lanes": max(s.max_batch for s in stats),
+            "reverified": sum(s.reverified for s in stats),
+            "device_faults": sum(s.device_faults for s in stats),
+            "delivered": router["delivered"], "dropped": router["dropped"],
+            "view_changes": [vc for n in net.nodes
+                             for vc in n.adapter.view_changes]}
+
+
+def _audit_proofs(net, heights) -> int:
+    """Each committed proof decoded, its voters extracted against the
+    controller's authority list and the aggregate checked on the
+    precommit vote hash by the host oracle (CpuBlsCrypto)."""
+    from consensus_overlord_tpu_torch.core.bitmap import extract_voters
+    from consensus_overlord_tpu_torch.core.sm3 import sm3_hash
+    from consensus_overlord_tpu_torch.core.types import (
+        Proof, Vote, VoteType)
+    from consensus_overlord_tpu_torch.crypto.provider import CpuBlsCrypto
+
+    ctl = net.controller
+    authority = ctl.authority_list()
+    oracle = CpuBlsCrypto(0x1000)
+    for h in heights:
+        proof = Proof.decode(ctl.proofs[h])
+        voters = extract_voters(authority, proof.signature.address_bitmap)
+        vote = Vote(proof.height, proof.round, VoteType.PRECOMMIT,
+                    proof.block_hash)
+        if (proof.height != h or 3 * len(voters) <= 2 * len(authority)
+                or not oracle.verify_aggregated_signature(
+                    proof.signature.signature, sm3_hash(vote.encode()),
+                    voters)):
+            fail(f"sim: the proof of height {h} fails the audit")
+    if ctl.violations:
+        fail(f"sim: safety violations {ctl.violations}")
+    return len(heights)
+
+
+class HostSampler:
+    """Every `every_s`, every thread's innermost Python frame
+    (sys._current_frames): a thread in threading, queue, selectors or an
+    executor's worker loop waits; one standing on a `with _ISSUE:` line
+    of the provider waits for the issue lock (cuda_provider._ISSUE); any
+    other runs Python or sits in a C call (a launch, a copy, the native
+    pairing), and is charged to the innermost frame of the port's
+    package."""
+
+    WAITS = ("threading.py", "queue.py", "selectors.py", "thread.py")
+    PKG = os.sep + "consensus_overlord_tpu_torch" + os.sep
+
+    def __init__(self, every_s: float = 0.05):
+        import collections
+        import threading
+
+        self.every_s = every_s
+        self.samples = 0
+        self.threads = collections.Counter()
+        self.modules = collections.Counter()
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._loop, daemon=True)
+
+    @staticmethod
+    def _on_issue_lock(frame) -> bool:
+        import linecache
+
+        name = frame.f_code.co_filename
+        return (name.endswith("cuda_provider.py") and linecache.getline(
+            name, frame.f_lineno).strip() == "with _ISSUE:")
+
+    @staticmethod
+    def _role(name: str) -> str:
+        if name == "MainThread":
+            return "event loop"
+        if name.startswith("frontier-dispatch"):
+            return "frontier dispatchers"
+        if name.startswith("asyncio"):
+            return "resolvers"
+        return "other"
+
+    def _loop(self) -> None:
+        import threading
+
+        me = threading.get_ident()
+        while not self._stop.wait(self.every_s):
+            names = {t.ident: t.name for t in threading.enumerate()}
+            for ident, frame in sys._current_frames().items():
+                if ident == me:
+                    continue
+                role = self._role(names.get(ident, ""))
+                if frame.f_code.co_filename.endswith(self.WAITS):
+                    self.threads[role + " waiting"] += 1
+                    continue
+                if self._on_issue_lock(frame):
+                    self.threads[role + " on the issue lock"] += 1
+                    continue
+                self.threads[role + " running"] += 1
+                f = frame
+                while f is not None and self.PKG not in f.f_code.co_filename:
+                    f = f.f_back
+                self.modules[f.f_code.co_filename.split(self.PKG, 1)[1]
+                             if f is not None else "outside the port"] += 1
+            self.samples += 1
+
+    def __enter__(self):
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self._stop.set()
+        self._thread.join()
+
+    def report(self) -> dict:
+        running = max(sum(self.modules.values()), 1)
+        return {"samples": self.samples, "every_ms": self.every_s * 1e3,
+                "thread_samples": dict(sorted(self.threads.items())),
+                "running_share_by_module": {
+                    k: v / running for k, v in self.modules.most_common(8)}}
+
+
+def sim_fleet(torch, kernels, seed: int) -> dict:
+    """The port's validator fleet in process (sim/harness.py SimNetwork,
+    as sim/run.py --crypto bls builds it) at deployment bls64-frontier:
+    every node on its own CudaBlsCrypto(device="cuda") with the JAX
+    package's sim keys; one warm height, then SIM_HEIGHTS measured with
+    the launch counts set to 0 just before and read just after; then one
+    more height, profiled: a torch.profiler trace of the CUDA activity
+    (device-busy seconds against the height's wall) and a HostSampler."""
+    import asyncio
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from consensus_overlord_tpu_torch.crypto.cuda_provider import (
+        CudaBlsCrypto)
+    from consensus_overlord_tpu_torch.obs.prof import DeviceProfiler
+    from consensus_overlord_tpu_torch.sim import SimNetwork
+
+    async def drive():
+        t0 = time.perf_counter()
+        net = SimNetwork(
+            n_validators=SIM_VALIDATORS, block_interval_ms=SIM_INTERVAL_MS,
+            seed=seed, use_frontier=True,
+            frontier_linger_s=SIM_LINGER_MS / 1000.0,
+            crypto_factory=lambda i: CudaBlsCrypto(
+                0x1000 + 7919 * i, device="cuda",
+                device_threshold=SIM_THRESHOLD),
+            sim_device_crypto=True, profiler=DeviceProfiler(),
+            flight_recorder_capacity=256)
+        doc = {"setup_s": time.perf_counter() - t0}
+        # Each node validates its authority set's keys into its own
+        # pubkey cache on the card, as a node does on reconfigure.
+        t0 = time.perf_counter()
+        for n in net.nodes:
+            n.crypto.update_pubkeys(net.controller.validators)
+        doc["pubkeys_s"] = time.perf_counter() - t0
+        net.start(init_height=1)
+        top = SIM_WARM_HEIGHTS + SIM_HEIGHTS
+        want = SIM_WARM_HEIGHTS
+        try:
+            t0 = time.perf_counter()
+            await net.run_until_height(want, SIM_TIMEOUT_S)
+            doc["warm_s"] = time.perf_counter() - t0
+            before = _fleet_totals(net)
+            kernels.reset_counts()
+            t0 = last = time.perf_counter()
+            height_ms = []
+            for want in range(SIM_WARM_HEIGHTS + 1, top + 1):
+                await net.run_until_height(want, SIM_TIMEOUT_S)
+                now = time.perf_counter()
+                height_ms.append((now - last) * 1e3)
+                last = now
+            doc["total_s"] = last - t0
+            doc["launches"] = kernels.counts()
+            doc["launch_lanes"] = {k: kernels.size_buckets(v) for k, v in
+                                   kernels.sizes().items() if v}
+            after = _fleet_totals(net)
+            want = top + 1
+            with HostSampler() as sampler, profile(
+                    activities=[ProfilerActivity.CUDA]) as trace:
+                t0 = time.perf_counter()
+                await net.run_until_height(want, SIM_TIMEOUT_S)
+                wall = time.perf_counter() - t0
+            final = _fleet_totals(net)
+        except asyncio.TimeoutError:
+            print(net.dump_flight_recorders(16), file=sys.stderr)
+            fail(f"sim: stuck at height {net.controller.latest_height}, "
+                 f"wanted {want} within {SIM_TIMEOUT_S} s")
+        finally:
+            await net.stop()
+        kern = [e for e in trace.key_averages()
+                if e.device_type == DeviceType.CUDA]
+        busy = sum(e.self_device_time_total for e in kern) / 1e6
+        top_k = sorted(kern, key=lambda e: -e.self_device_time_total)[:5]
+        doc["profiled_height"] = {
+            "wall_s": wall, "device_busy_s": busy,
+            "device_idle_share": 1 - busy / wall,
+            "kernel_launches": sum(e.count for e in kern),
+            "top_kernels": [{"name": e.key[:48], "calls": e.count,
+                             "ms": e.self_device_time_total / 1e3}
+                            for e in top_k],
+            "host": sampler.report()}
+        doc["height_ms"] = height_ms
+        doc["audited"] = _audit_proofs(net, range(1, top + 2))
+        return doc, before, after, final
+
+    doc, before, after, final = asyncio.run(drive())
+    srt = sorted(doc["height_ms"])
+
+    def pct(q: float) -> float:
+        return srt[min(len(srt) - 1, int(q * len(srt)))]
+
+    def delta(path: str, where: str) -> int:
+        return (after["status"]["calls"][path][where]
+                - before["status"]["calls"][path][where])
+
+    batches = after["batches"] - before["batches"]
+
+    def tally(changes) -> dict:
+        out: dict = {}
+        for _, _, why in changes:
+            out[why] = out.get(why, 0) + 1
+        return out
+
+    reasons = tally(after["view_changes"][len(before["view_changes"]):])
+    st = after["status"]
+    out = {"phase": "sim", "deployment": "bls64-frontier",
+           "validators": SIM_VALIDATORS, "warm_heights": SIM_WARM_HEIGHTS,
+           "heights": SIM_HEIGHTS, "interval_ms": SIM_INTERVAL_MS,
+           "device_threshold": SIM_THRESHOLD,
+           "frontier_linger_ms": SIM_LINGER_MS,
+           "setup_s": doc["setup_s"], "pubkeys_s": doc["pubkeys_s"],
+           "warm_s": doc["warm_s"],
+           "total_s": doc["total_s"],
+           "ms_per_height": doc["total_s"] * 1e3 / SIM_HEIGHTS,
+           "height_ms": doc["height_ms"], "p50_ms": pct(0.50),
+           "p95_ms": pct(0.95),
+           "frontier": {
+               "batches": batches,
+               "device_rounds": delta("verify_batch", "device"),
+               "host_batches": delta("verify_batch", "host"),
+               "mean_lanes": (after["requests"] - before["requests"])
+               / max(batches, 1),
+               "max_lanes_with_warm": after["max_lanes"],
+               "reverified": after["reverified"] - before["reverified"]},
+           "qc": {path: {w: delta(path, w) for w in ("device", "host")}
+                  for path in ("aggregate", "verify_aggregated")},
+           "launches": doc["launches"], "launch_lanes": doc["launch_lanes"],
+           "breaker_failures": st["total_failures"],
+           "breakers": st["state"],
+           "pairing_host_fallbacks": st["pairing_host_fallbacks"],
+           "delivered": after["delivered"] - before["delivered"],
+           "dropped": after["dropped"] - before["dropped"],
+           "view_changes": reasons,
+           "warm_view_changes": tally(before["view_changes"]),
+           "audited_proofs": doc["audited"],
+           "profiled_height": doc["profiled_height"]}
+    idle = [k for k in SIM_KERNELS if not out["launches"][k]]
+    if idle:
+        fail(f"sim: the measured heights never launched {idle}: {out}")
+    if not out["frontier"]["device_rounds"]:
+        fail(f"sim: no frontier batch went to the device: {out}")
+    fst = final["status"]
+    if (fst["total_failures"] or fst["pairing_host_fallbacks"]
+            or final["reverified"] or final["device_faults"]):
+        fail(f"sim: the device path degraded: {out}, through the profiled "
+             f"height {fst}")
+    if any(m == "jax" or m.startswith(("jax.", "consensus_overlord_tpu."))
+           or m == "consensus_overlord_tpu" for m in sys.modules):
+        fail("sim: the fleet imported JAX or the JAX package")
+    return out
+
+
 # -- main path -------------------------------------------------------------------
 
 def provider_health(prov, phase: str) -> dict:
@@ -1068,6 +1479,8 @@ def main(argv=None) -> int:
     qc = drive_qc(torch, prov, s0, hashes[0], pks, sigs[0],
                   torch.cuda.synchronize)
     emit(degraded(prov, s0, hashes[0], pks, sigs[0]))
+    emit(pinned_upload(torch, prov, card, sigs[0], hashes[0], pks))
+    emit(sim_fleet(torch, kernels, args.seed))
 
     # Host-clock phases first: the profiled round runs last.
     emit(pairing_ab(torch, prov, s0, sigs[0], hashes[0], pks,

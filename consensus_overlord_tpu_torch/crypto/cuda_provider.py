@@ -47,6 +47,7 @@ Batches below ``device_threshold`` (QC work below
 
 from __future__ import annotations
 
+import functools
 import logging
 import os
 import secrets
@@ -78,6 +79,16 @@ _PK_CAPS = (256, 1024, 4096, 16384)
 # single-hash sub-batches.
 _GROUP_SIZES = (2, 3, 4)
 
+#: Uploads larger than this go through pinned memory (_to_dev).  CUDA
+#: stages a copy from pageable memory up to some size at once; a larger
+#: one waits for the work already on the stream.  On an H100 80GB HBM3
+#: behind 200 ms of queued work a pageable copy of 1.25 MB (the 8192-lane
+#: signature limbs, the main path's largest upload) returned at once and
+#: one of 10 MB waited, while pinning first cost 1.99 ms against 0.34 at
+#: 1.25 MB and 0.18 against 0.08 at 20 KB (chip_smoke.py pinned_upload,
+#: which fails if an upload at or below this size waits).
+_PAGEABLE_MAX_BYTES = 8192 * 39 * 4
+
 # Device multi-pairing pad ladder: a flush pairs the signature aggregate
 # with k ≤ 4 hash groups; padded pairs are masked to one.
 _PAIR_SIZES = (2, 5)
@@ -89,6 +100,23 @@ _NEG_G2_GEN_X = dev.FQ2.from_ints([_NEG_G2_ORACLE[0]])[0]
 _NEG_G2_GEN_Y = dev.FQ2.from_ints([_NEG_G2_ORACLE[1]])[0]
 
 logger = logging.getLogger(__name__)
+
+#: One thread at a time issues device work in this process.  Every torch
+#: call drops and retakes the GIL, so providers issuing from many threads
+#: at once (a fleet: one frontier dispatcher per node) hand the GIL to
+#: each other on every op and each op waits out a switch interval.
+#: Waiters sleep on this lock instead.  Readbacks run outside it.  Taken
+#: before a provider's _pk_lock, never after it.
+_ISSUE = threading.RLock()
+
+
+def _issuing(fn):
+    """Run a method that issues device work under _ISSUE."""
+    @functools.wraps(fn)
+    def run(*args, **kwargs):
+        with _ISSUE:
+            return fn(*args, **kwargs)
+    return run
 
 
 def _pad_to(n: int) -> int:
@@ -378,6 +406,13 @@ class CudaBlsCrypto:
         #: each site at one attribute check.
         self.metrics = None
         self.prof = None
+        #: Calls of each batched path by where they ran: "device" counts
+        #: the device dispatches issued, "host" the calls a threshold or
+        #: an open breaker routed to the host oracle.
+        self.calls = {path: {"device": 0, "host": 0}
+                      for path in ("verify_batch", "aggregate",
+                                   "verify_aggregated")}
+        self._calls_lock = threading.Lock()
         # Guards the cache and its device copy: a reconfigure may race a
         # verify that is gathering rows.
         self._pk_lock = threading.RLock()
@@ -418,7 +453,13 @@ class CudaBlsCrypto:
         doc["device_pairing"] = self._pairing_on_device
         doc["pairing_host_fallbacks"] = self.pairing_host_fallbacks
         doc["g2_table_msm"] = False
+        with self._calls_lock:
+            doc["calls"] = {p: dict(c) for p, c in self.calls.items()}
         return doc
+
+    def _count(self, path: str, where: str) -> None:
+        with self._calls_lock:
+            self.calls[path][where] += 1
 
     def _device_allowed(self, path: str) -> bool:
         """Ask the breaker; count the fallback when routed to the host."""
@@ -606,7 +647,17 @@ class CudaBlsCrypto:
         return self._cpu.verify_signature(signature, hash32, voter)
 
     def _to_dev(self, arr: np.ndarray) -> torch.Tensor:
-        return torch.as_tensor(arr).to(self.device, non_blocking=True)
+        """Upload a host array without waiting for the card.  Above
+        _PAGEABLE_MAX_BYTES it is first copied into pinned memory: a
+        copy that large from pageable memory waits for the work already
+        on the stream, which would block the issuing thread outside the
+        watchdog (_watched).  The caching host allocator keeps the
+        pinned block alive until the copy has run."""
+        t = torch.as_tensor(arr)
+        if (self.device.type == "cuda"
+                and t.numel() * t.element_size() > _PAGEABLE_MAX_BYTES):
+            t = t.pin_memory()
+        return t.to(self.device, non_blocking=True)
 
     # -- QC paths ------------------------------------------------------------
 
@@ -625,33 +676,37 @@ class CudaBlsCrypto:
                 f"{len(signatures)} x {len(voters)}")
         if (len(signatures) < self._qc_threshold
                 or not self._device_allowed("aggregate")):
+            self._count("aggregate", "host")
             return lambda: self._cpu.aggregate_signatures(signatures, voters)
         n = len(signatures)
         call = self._prof_begin("aggregate", n)
-        try:
-            self.breaker.raise_if_injected("aggregate")
-            t0 = time.perf_counter()
-            size = _pad_to(n)
-            call.pad(n, size)
-            parsed = dev.parse_g1_compressed(list(signatures))
-            x = np.zeros((size, dev.FQ.n), np.int32)
-            x[:n] = parsed.x
-            sign_f = np.zeros(size, bool)
-            sign_f[:n] = parsed.sign
-            inf = np.zeros(size, bool)
-            inf[:n] = parsed.infinity
-            ok = np.zeros(size, bool)
-            ok[:n] = parsed.wellformed
-            call.observe("parse", time.perf_counter() - t0)
-            t0 = time.perf_counter()
-            with annotate("cuda_bls.aggregate.dispatch"):
-                out = self._kernels.g1_validate_sum(
-                    *(self._to_dev(a) for a in (x, sign_f, inf, ok)))
-            call.observe("dispatch", time.perf_counter() - t0)
-        except Exception as e:  # noqa: BLE001 — see _injected
-            call.finish(ok=False)
-            self._device_failed("aggregate", e)
-            return lambda: self._cpu.aggregate_signatures(signatures, voters)
+        with _ISSUE:
+            try:
+                self.breaker.raise_if_injected("aggregate")
+                self._count("aggregate", "device")
+                t0 = time.perf_counter()
+                size = _pad_to(n)
+                call.pad(n, size)
+                parsed = dev.parse_g1_compressed(list(signatures))
+                x = np.zeros((size, dev.FQ.n), np.int32)
+                x[:n] = parsed.x
+                sign_f = np.zeros(size, bool)
+                sign_f[:n] = parsed.sign
+                inf = np.zeros(size, bool)
+                inf[:n] = parsed.infinity
+                ok = np.zeros(size, bool)
+                ok[:n] = parsed.wellformed
+                call.observe("parse", time.perf_counter() - t0)
+                t0 = time.perf_counter()
+                with annotate("cuda_bls.aggregate.dispatch"):
+                    out = self._kernels.g1_validate_sum(
+                        *(self._to_dev(a) for a in (x, sign_f, inf, ok)))
+                call.observe("dispatch", time.perf_counter() - t0)
+            except Exception as e:  # noqa: BLE001 — see _injected
+                call.finish(ok=False)
+                self._device_failed("aggregate", e)
+                return lambda: self._cpu.aggregate_signatures(
+                    signatures, voters)
 
         def resolve() -> bytes:
             t0 = time.perf_counter()
@@ -683,38 +738,41 @@ class CudaBlsCrypto:
         the 2-pair verdict right behind it; returns resolve() → bool."""
         if (len(voters) < self._qc_threshold
                 or not self._device_allowed("verify_aggregated")):
+            self._count("verify_aggregated", "host")
             return lambda: self._cpu.verify_aggregated_signature(
                 agg_sig, hash32, voters)
         call = self._prof_begin("verify_aggregated", len(voters))
-        try:
-            self.breaker.raise_if_injected("verify_aggregated")
-            t0 = time.perf_counter()
-            idx = self._pk_rows_of(voters)
-            if (idx < 0).any():
-                # A QC over an unknown or bad key never verifies (no
-                # device dispatch happened).
+        with _ISSUE:
+            try:
+                self.breaker.raise_if_injected("verify_aggregated")
+                t0 = time.perf_counter()
+                idx = self._pk_rows_of(voters)
+                if (idx < 0).any():
+                    # A QC over an unknown or bad key never verifies (no
+                    # device dispatch happened).
+                    call.observe("parse", time.perf_counter() - t0)
+                    call.finish(ok=False)
+                    return lambda: False
+                n = len(voters)
+                size = _pad_to(n)
+                call.pad(n, size)
+                rows = np.zeros(size, np.int64)
+                rows[:n] = idx
+                mask = np.zeros(size, bool)
+                mask[:n] = True
                 call.observe("parse", time.perf_counter() - t0)
+                t0 = time.perf_counter()
+                self._count("verify_aggregated", "device")
+                pkx, pky, pkz = self._pk_device()
+                with annotate("cuda_bls.verify_aggregated.dispatch"):
+                    out = self._kernels.g2_sum_rows(
+                        self._to_dev(rows), self._to_dev(mask), pkx, pky, pkz)
+                call.observe("dispatch", time.perf_counter() - t0)
+            except Exception as e:  # noqa: BLE001 — see _injected
                 call.finish(ok=False)
-                return lambda: False
-            n = len(voters)
-            size = _pad_to(n)
-            call.pad(n, size)
-            rows = np.zeros(size, np.int64)
-            rows[:n] = idx
-            mask = np.zeros(size, bool)
-            mask[:n] = True
-            call.observe("parse", time.perf_counter() - t0)
-            t0 = time.perf_counter()
-            pkx, pky, pkz = self._pk_device()
-            with annotate("cuda_bls.verify_aggregated.dispatch"):
-                out = self._kernels.g2_sum_rows(
-                    self._to_dev(rows), self._to_dev(mask), pkx, pky, pkz)
-            call.observe("dispatch", time.perf_counter() - t0)
-        except Exception as e:  # noqa: BLE001 — see _injected
-            call.finish(ok=False)
-            self._device_failed("verify_aggregated", e)
-            return lambda: self._cpu.verify_aggregated_signature(
-                agg_sig, hash32, voters)
+                self._device_failed("verify_aggregated", e)
+                return lambda: self._cpu.verify_aggregated_signature(
+                    agg_sig, hash32, voters)
 
         # The verdict is enqueued right behind the pubkey sum: the
         # signature's decompression and the hash map are host work, so
@@ -850,6 +908,7 @@ class CudaBlsCrypto:
         if n == 0:
             return lambda: []
         if n < self._threshold or not self._device_allowed("verify_batch"):
+            self._count("verify_batch", "host")
             return lambda: self._host_verify(signatures, hashes, voters)
         groups: Dict[bytes, List[int]] = {}
         for i, h in enumerate(hashes):
@@ -920,6 +979,7 @@ class CudaBlsCrypto:
                     (sx, ssign, sinf, sok, wpacked, rows))
         return (size,) + ins + (pk_ok,)
 
+    @_issuing
     def _dispatch_pairing(self, g1s, g2s) -> Optional[torch.Tensor]:
         """Enqueue the device multi-pairing verdict over a flush's pairs.
         g1s: [(x, y, inf)] G1 strict limbs ((n,) each, a device tensor or
@@ -965,7 +1025,9 @@ class CudaBlsCrypto:
         hash-side pairs."""
         return dev.FQ.from_int(h_pt[0]), dev.FQ.from_int(h_pt[1])
 
+    @_issuing
     def _dispatch_single_hash(self, signatures, h, voters, n, call):
+        self._count("verify_batch", "device")
         t0 = time.perf_counter()
         (size, sx, ssign, sinf, sok, wpacked, rows,
          pk_ok) = self._host_prep(signatures, voters, n, call)
@@ -994,8 +1056,10 @@ class CudaBlsCrypto:
             out, verdict_dev, size, n, pk_ok, host_pairing, signatures,
             [h] * n, voters, f"single-hash batch n={n}", call)
 
+    @_issuing
     def _dispatch_multi_hash(self, signatures, voters, n,
                              groups: Dict[bytes, List[int]], call):
+        self._count("verify_batch", "device")
         t0 = time.perf_counter()
         (size, sx, ssign, sinf, sok, wpacked, rows,
          pk_ok) = self._host_prep(signatures, voters, n, call)
@@ -1130,6 +1194,7 @@ class CudaBlsCrypto:
 
     # -- pubkey cache --------------------------------------------------------
 
+    @_issuing
     def update_pubkeys(self, voters: Sequence[bytes]) -> None:
         """Validate and cache a validator set's public keys (the analog of
         the reference's pubkey cache refresh on reconfigure,
@@ -1218,6 +1283,7 @@ class CudaBlsCrypto:
                                      (self._pk.px, self._pk.py, self._pk.pz))
             return self._pk_dev
 
+    @_issuing
     def _pk_rows_of(self, voters: Sequence[bytes]) -> np.ndarray:
         """Cache rows of the voters (validating unseen keys); bad = −1."""
         with self._pk_lock:

@@ -14,7 +14,9 @@ missing ``nvcc``, a failed build or a refused launch raises.
 Each kernel keeps a launch counter (``Kernel.launches``) that its wrapper
 increments once per launch and nowhere else, so a run can show that the
 main path went through the kernel, and a histogram of the lanes per
-launch (``Kernel.sizes``).
+launch (``Kernel.sizes``); both are updated under a lock, since a fleet
+of providers launches from many threads.  The field tables are uploaded
+once per device per process, under the module's lock.
 
 The wrappers take the JAX package's limb layouts — (B, n) for the field
 and G1 kernels, the tower's (B, 2, n), (B, 2, 3, 2, n) for the pairing
@@ -83,10 +85,12 @@ class Kernel:
         self.replaces = replaces
         self.launches = 0
         self.sizes: Dict[int, int] = {}  # lanes per launch → launches
+        self._lock = threading.Lock()
 
     def count(self, lanes: int) -> None:
-        self.launches += 1
-        self.sizes[lanes] = self.sizes.get(lanes, 0) + 1
+        with self._lock:
+            self.launches += 1
+            self.sizes[lanes] = self.sizes.get(lanes, 0) + 1
 
 
 FQ_MUL = Kernel(
@@ -116,8 +120,9 @@ PAIRING_KERNELS = (MILLER_PRODUCT, FQ12_MUL, FINAL_EXP)
 
 def reset_counts() -> None:
     for k in KERNELS:
-        k.launches = 0
-        k.sizes = {}
+        with k._lock:
+            k.launches = 0
+            k.sizes = {}
 
 
 def counts() -> Dict[str, int]:
@@ -434,15 +439,24 @@ def _check(name: str, tensors: Sequence[torch.Tensor], n: int) -> int:
 
 
 def _prepare(lib: str, spec, device: torch.device) -> ctypes.CDLL:
+    """The loaded library, with the field tables uploaded to `device`:
+    once per library, device and spec in the process, under the lock, so
+    that no provider built later rewrites tables that another provider's
+    kernels may be reading."""
     handle = _library(lib, spec)
     key = (id(handle), device.index, id(spec))
-    if key not in _tables_set:
-        tab = fq_tables(spec)
-        err = handle.fq_set_tables(tab.ctypes.data, tab.size, device.index)
-        if err:
-            raise RuntimeError(f"{lib}: setting the field tables failed: "
-                               f"{handle.fq_error_string(err).decode()}")
-        _tables_set.add(key)
+    if key in _tables_set:  # the per-launch path: no lock
+        return handle
+    with _lock:
+        if key not in _tables_set:
+            tab = fq_tables(spec)
+            err = handle.fq_set_tables(tab.ctypes.data, tab.size,
+                                       device.index)
+            if err:
+                raise RuntimeError(
+                    f"{lib}: setting the field tables failed: "
+                    f"{handle.fq_error_string(err).decode()}")
+            _tables_set.add(key)
     return handle
 
 
@@ -502,6 +516,7 @@ def g1_dbl(spec, p: Tuple[torch.Tensor, ...]) -> Tuple[torch.Tensor, ...]:
 # -- the pairing kernels (csrc/pairing.cu) ------------------------------------
 
 _programs: Dict[Tuple[str, int, torch.device], Tuple] = {}
+_programs_lock = threading.Lock()
 
 
 def tower_smem_bytes(nregs: int) -> int:
@@ -520,16 +535,20 @@ def _program(name: str, spec, device: torch.device):
     register count, on `device` (made and uploaded once)."""
     key = (name, id(spec), device)
     got = _programs.get(key)
-    if got is None:
-        from .tower_program import VERSION, program  # it imports the tower
-        prog = program(name, spec, TOWER_THREADS // 32)
-        if int(prog.words[0]) != VERSION:
-            raise RuntimeError(f"{name}: program version mismatch")
-        consts = prog.consts if len(prog.consts) else np.zeros(
-            (1, spec.n), np.int32)
-        got = (torch.as_tensor(prog.words, device=device),
-               torch.as_tensor(consts, device=device), prog.nregs)
-        _programs[key] = got
+    if got is not None:
+        return got
+    with _programs_lock:  # many providers' threads: record it once
+        got = _programs.get(key)
+        if got is None:
+            from .tower_program import VERSION, program  # imports the tower
+            prog = program(name, spec, TOWER_THREADS // 32)
+            if int(prog.words[0]) != VERSION:
+                raise RuntimeError(f"{name}: program version mismatch")
+            consts = prog.consts if len(prog.consts) else np.zeros(
+                (1, spec.n), np.int32)
+            got = (torch.as_tensor(prog.words, device=device),
+                   torch.as_tensor(consts, device=device), prog.nregs)
+            _programs[key] = got
     return got
 
 

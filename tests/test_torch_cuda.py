@@ -270,3 +270,111 @@ def test_qc_device_steps_on_the_card_match_the_cpu(cuda):
     after = kernels.counts()
     assert after["fq_mul"] > before["fq_mul"]
     assert after["g1_add"] > before["g1_add"]
+
+
+def _signed_votes(n: int, h: bytes):
+    from consensus_overlord_tpu_torch.crypto.provider import CpuBlsCrypto
+
+    cpus = [CpuBlsCrypto(0x2000 + 7919 * i) for i in range(n)]
+    sigs = [c.sign(h) for c in cpus]
+    sigs[1] = sigs[0]  # a wrong signer
+    return sigs, [c.pub_key for c in cpus], cpus
+
+
+def test_providers_built_while_a_batch_is_in_flight(cuda):
+    """Providers built (on other threads too) while another provider's
+    device batch is in flight upload no field tables again, and every
+    verdict stays exact."""
+    import threading
+
+    from consensus_overlord_tpu_torch.crypto.cuda_provider import (
+        CudaBlsCrypto)
+
+    h = b"\x0b" * 32
+    sigs, pks, cpus = _signed_votes(48, h)
+    want = [cpus[0].verify_signature(s, h, v) for s, v in zip(sigs, pks)]
+    first = CudaBlsCrypto(0x1000, device=cuda, device_threshold=8)
+    first.update_pubkeys(pks)
+    tables = set(kernels._tables_set)
+    resolve = first.verify_batch_async(sigs, [h] * 48, pks)
+    built = []
+    threads = [threading.Thread(target=lambda i=i: built.append(
+        CudaBlsCrypto(0x1000 + 7919 * i, device=cuda, device_threshold=8)))
+        for i in range(1, 5)]
+    for t in threads:
+        t.start()
+    built.append(CudaBlsCrypto(0x1000 + 7919 * 5, device=cuda,
+                               device_threshold=8))
+    for t in threads:
+        t.join()
+    assert resolve() == want
+    assert kernels._tables_set == tables
+    for p in built:
+        assert p.verify_batch(sigs, [h] * 48, pks) == want
+        assert p.calls["verify_batch"] == {"device": 1, "host": 0}
+
+
+def test_upload_after_a_launch_does_not_wait_for_the_card(cuda):
+    """_to_dev copies an upload above _PAGEABLE_MAX_BYTES through pinned
+    memory: a 10-MB upload issued behind ~200 ms of queued work returns
+    at once (from pageable memory a copy this large waits for the work),
+    and the data arrives intact."""
+    import time
+
+    from consensus_overlord_tpu_torch.crypto.cuda_provider import (
+        CudaBlsCrypto)
+
+    p = CudaBlsCrypto(0x1000, device=cuda)
+    arr = np.arange(65536 * 39, dtype=np.int32).reshape(65536, 39)
+    p._to_dev(arr)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    torch.cuda._sleep(400_000_000)  # 0.2 s at 1,980 MHz, more if slower
+    got = p._to_dev(arr)
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    assert host_s < 0.05
+    assert torch.equal(got.cpu(), torch.as_tensor(arr))
+
+
+def test_bls_fleet_on_the_card_commits_a_height(cuda):
+    """An 8-validator fleet of the port on CudaBlsCrypto("cuda") commits
+    height 1 with vote batches on the device and an audited proof."""
+    import asyncio
+    import time
+
+    from consensus_overlord_tpu_torch.core.bitmap import extract_voters
+    from consensus_overlord_tpu_torch.core.sm3 import sm3_hash
+    from consensus_overlord_tpu_torch.core.types import (
+        Proof, Vote, VoteType)
+    from consensus_overlord_tpu_torch.crypto.cuda_provider import (
+        CudaBlsCrypto)
+    from consensus_overlord_tpu_torch.crypto.provider import CpuBlsCrypto
+    from consensus_overlord_tpu_torch.sim import SimNetwork
+    from consensus_overlord_tpu_torch.sim.run import sum_status
+
+    async def main():
+        net = SimNetwork(
+            n_validators=8, block_interval_ms=2000, use_frontier=True,
+            frontier_linger_s=0.05, sim_device_crypto=True,
+            crypto_factory=lambda i: CudaBlsCrypto(
+                0x1000 + 7919 * i, device=cuda, device_threshold=2))
+        net.start(init_height=1)
+        try:
+            await net.run_until_height(1, timeout=120)
+        finally:
+            await net.stop()
+        return net
+
+    t0 = time.perf_counter()
+    net = asyncio.run(main())
+    print(f"8-validator fleet, height 1: {time.perf_counter() - t0:.3f} s")
+    st = sum_status(n.crypto.degraded_status() for n in net.nodes)
+    assert st["calls"]["verify_batch"]["device"] > 0
+    assert st["total_failures"] == 0 and st["pairing_host_fallbacks"] == 0
+    proof = Proof.decode(net.controller.proofs[1])
+    voters = extract_voters(net.controller.authority_list(),
+                            proof.signature.address_bitmap)
+    vote = Vote(1, proof.round, VoteType.PRECOMMIT, proof.block_hash)
+    assert CpuBlsCrypto(0x1000).verify_aggregated_signature(
+        proof.signature.signature, sm3_hash(vote.encode()), voters)

@@ -170,8 +170,12 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                                        "consensus_overlord_tpu"), (path, name)
     for module in ("consensus_overlord_tpu_torch.crypto.breaker",
                    "consensus_overlord_tpu_torch.crypto.cuda_provider",
+                   "consensus_overlord_tpu_torch.crypto.tenancy",
+                   "consensus_overlord_tpu_torch.engine.smr",
                    "consensus_overlord_tpu_torch.obs.fleet",
-                   "consensus_overlord_tpu_torch.obs.prof"):
+                   "consensus_overlord_tpu_torch.obs.prof",
+                   "consensus_overlord_tpu_torch.sim.harness",
+                   "consensus_overlord_tpu_torch.sim.run"):
         assert module in modules, module
     code = ("import importlib, sys\n"
             f"for m in {sorted(modules)!r}:\n"
