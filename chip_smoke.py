@@ -69,6 +69,23 @@ spill in any kernel fails the run.  Then
                    and a missed height, an idle kernel of the path, no
                    device batch, a breaker failure, a host pairing, a
                    frontier re-verify or a device fault fails the run;
+  service          the same 64 validators through the service's entry
+                   points (deployment bls64-service): 64 ServiceRuntimes
+                   (crypto_backend "cuda") with fake network siblings on
+                   one fabric and one fake controller (10-s interval),
+                   on the gRPC wire where grpc imports, else in process
+                   (LoopbackTransport); every node's reconfigure
+                   validates the keys on the card before the controller
+                   serves; one warm height and SERVICE_HEIGHTS measured
+                   (launch counts set to 0 just before, read just
+                   after); every measured proof through node 0's
+                   CheckBlock as committed and tampered (data, and
+                   another height's signature); node 0's /metrics and
+                   /statusz.  A missed height, an idle kernel, a pubkey
+                   update, QC call or CheckBlock on the host, a wrong
+                   verdict, a device fault, host pairing, re-verify or
+                   breaker failure, or a missing metric or section fails
+                   the run;
 
   pairing_ab       the warm single-hash round with device pairing off,
                    on, on, off (seconds, verifies/s), and the device
@@ -97,6 +114,7 @@ GPU is visible; fixtures are cached under .smoke_fixtures/.
 from __future__ import annotations
 
 import argparse
+import asyncio
 import hashlib
 import json
 import os
@@ -1018,6 +1036,369 @@ def sim_fleet(torch, kernels, seed: int) -> dict:
     return out
 
 
+# -- the service ------------------------------------------------------------------
+
+#: Deployment bls64-service: bls64-frontier through the service's entry
+#: points (service/main.py ServiceRuntime), one process, crypto_backend
+#: "cuda" on every node.
+SERVICE_VALIDATORS = 64
+SERVICE_WARM_HEIGHTS = 1
+SERVICE_HEIGHTS = 3
+#: The controller's block interval, in seconds (ConsensusConfiguration
+#: carries whole seconds); 10 s as in the sim phase.
+SERVICE_INTERVAL_S = 10
+SERVICE_LINGER_MS = 50.0
+SERVICE_TIMEOUT_S = 120.0
+#: The kernels every measured height must launch: the leader's QC
+#: aggregates (fq_mul, g1_add) and every QC verify's device pairing.
+#: Vote batches stay below the service's device threshold (32), so
+#: g1_dbl and fq12_mul are reported, not required.
+SERVICE_KERNELS = ("fq_mul", "g1_add", "miller_product", "final_exp")
+#: /statusz sections node 0 must serve.
+SERVICE_SECTIONS = ("crypto", "frontier", "commits", "health")
+
+
+def service_transport():
+    """The gRPC wire on localhost where `grpc` imports, else the
+    in-process LoopbackTransport."""
+    from consensus_overlord_tpu_torch.service.rpc import (
+        GrpcTransport, LoopbackTransport)
+
+    try:
+        return GrpcTransport()
+    except ImportError:
+        return LoopbackTransport()
+
+
+def _service_totals(runtimes) -> dict:
+    from consensus_overlord_tpu_torch.sim.run import sum_status
+
+    stats = [rt.consensus.frontier.stats for rt in runtimes]
+    return {"status": sum_status(rt.consensus.crypto.degraded_status()
+                                 for rt in runtimes),
+            "batches": sum(s.batches for s in stats),
+            "requests": sum(s.requests for s in stats),
+            "max_lanes": max(s.max_batch for s in stats),
+            "reverified": sum(s.reverified for s in stats),
+            "device_faults": sum(s.device_faults for s in stats)}
+
+
+def _with_signature_of(proof: bytes, other: bytes) -> bytes:
+    """`proof` carrying the aggregate signature of `other`: it decodes,
+    its hash and voters match, and only the signature check refuses it."""
+    from consensus_overlord_tpu_torch.core.types import (
+        AggregatedSignature, Proof)
+
+    p, q = Proof.decode(proof), Proof.decode(other)
+    return Proof(p.height, p.round, p.block_hash, AggregatedSignature(
+        q.signature.signature, p.signature.address_bitmap)).encode()
+
+
+async def check_blocks(runtime, controller, heights, transport) -> dict:
+    """Every committed proof of `heights` through node `runtime`'s
+    CheckBlock RPC (SUCCESS), then the same block with its data changed
+    and with another height's signature (PROPOSAL_CHECK_ERROR each)."""
+    from consensus_overlord_tpu_torch.service.pb import pb2
+    from consensus_overlord_tpu_torch.service.rpc import (
+        CONSENSUS_SERVICE, Code, RetryClient)
+
+    client = RetryClient(f"localhost:{runtime.bound_port}",
+                         "ConsensusService", CONSENSUS_SERVICE, retries=1,
+                         transport=transport)
+    wrong, sent, checks = [], 0, 0
+    t0 = time.perf_counter()
+    try:
+        for h in heights:
+            other = h - 1 if h - 1 in controller.proofs else h + 1
+            data, proof = controller.chain[h], controller.proofs[h]
+            for case, d, pr, want in (
+                    ("committed", data, proof, Code.SUCCESS),
+                    ("data", data + b"x", proof, Code.PROPOSAL_CHECK_ERROR),
+                    ("signature", data,
+                     _with_signature_of(proof, controller.proofs[other]),
+                     Code.PROPOSAL_CHECK_ERROR)):
+                resp = await client.call("CheckBlock", pb2.ProposalWithProof(
+                    proposal=pb2.Proposal(height=h, data=d), proof=pr),
+                    timeout=60.0)
+                sent += 1
+                checks += case != "data"  # the rest reach the signature
+                if resp.code != want:
+                    wrong.append({"height": h, "case": case,
+                                  "code": resp.code, "want": want})
+    finally:
+        await client.close()
+    return {"calls": sent, "signature_checks": checks,
+            "seconds": time.perf_counter() - t0, "wrong": wrong}
+
+
+def read_surface(port: int) -> dict:
+    """Node 0's /metrics and /statusz over loopback HTTP."""
+    import urllib.request
+
+    base = f"http://127.0.0.1:{port}"
+    with urllib.request.urlopen(f"{base}/metrics", timeout=10) as r:
+        body = r.read()
+    with urllib.request.urlopen(f"{base}/statusz", timeout=10) as r:
+        status = json.loads(r.read())
+    return {"metrics_bytes": len(body),
+            "commit_latency_seconds":
+                b"consensus_commit_latency_seconds_count" in body,
+            "sections": sorted(status), "commits": status.get("commits"),
+            "health": status.get("health")}
+
+
+async def _loop_lag(lags: list, every_s: float = 0.05) -> None:
+    """How late the event loop wakes a sleeper, every `every_s`: the
+    time a callback waits for the loop (handlers, RPCs, timers)."""
+    loop = asyncio.get_running_loop()
+    while True:
+        t0 = loop.time()
+        await asyncio.sleep(every_s)
+        lags.append(loop.time() - t0 - every_s)
+
+
+def _lag_summary(lags: list) -> dict:
+    srt = sorted(lags) or [0.0]
+    return {"samples": len(lags), "p50": srt[len(srt) // 2] * 1e3,
+            "p99": srt[min(len(srt) - 1, int(0.99 * len(srt)))] * 1e3,
+            "max": srt[-1] * 1e3}
+
+
+async def drive_service(kernels, validators: int, device: str, transport,
+                        warm: int, heights: int, interval_s: int,
+                        timeout_s: float, linger_ms: float) -> dict:
+    """Deployment bls64-service at `validators` nodes: ServiceRuntimes in
+    this process, each with crypto_backend "cuda" on `device`, one
+    FakeNetworkService each on a shared NetworkFabric, one
+    FakeController, metrics on node 0 only, WALs in a temporary
+    directory.  Every node starts (serves, registers with its network
+    sibling, pings the controller, which does not serve yet); then each
+    node's reconfigure (Consensus.proc_reconfigure, what the Reconfigure
+    RPC and a successful ping run) applies the controller's
+    configuration, validating the 64 keys into the node's pubkey cache,
+    all before the controller serves: the engines start together, as in
+    a deployment, not one validation (about 0.6 s on the event loop)
+    apart.  `warm` heights, then `heights` measured with the launch
+    counts set to 0 just before and read just after; then CheckBlock on
+    node 0 and its /metrics and /statusz."""
+    import tempfile
+
+    from consensus_overlord_tpu_torch.crypto.provider import CpuBlsCrypto
+    from consensus_overlord_tpu_torch.service.config import ConsensusConfig
+    from consensus_overlord_tpu_torch.service.main import ServiceRuntime
+    from consensus_overlord_tpu_torch.service.rpc import CONTROLLER_SERVICE
+    from consensus_overlord_tpu_torch.service.rpc import generic_handler
+    from consensus_overlord_tpu_torch.sim.grpc_fakes import (
+        FakeController, NetworkFabric, start_fake_network)
+
+    keys = [0x1000 + 7919 * i for i in range(validators)]
+    pks = [CpuBlsCrypto(k).pub_key for k in keys]
+    fabric = NetworkFabric(transport)
+    fabric.set_validators(pks)
+    controller = FakeController(pks, block_interval=interval_s,
+                                transport=transport)
+    ctrl_server, ctrl_port = transport.server(
+        (generic_handler("Consensus2ControllerService", CONTROLLER_SERVICE,
+                         controller),), port=0, host="localhost")
+    servers, runtimes, view_changes = [ctrl_server], [], []
+    lags, lag = [], None
+    tmp = tempfile.TemporaryDirectory()
+    doc = {"transport": transport.name}
+    try:
+        t0 = time.perf_counter()
+        for i, key in enumerate(keys):
+            net_server, net_port = await start_fake_network(fabric, i)
+            servers.append(net_server)
+            config = ConsensusConfig(
+                network_port=net_port, consensus_port=0,
+                controller_port=ctrl_port, server_retry_interval=1,
+                wal_path=os.path.join(tmp.name, f"wal{i}"),
+                enable_metrics=(i == 0), metrics_port=0,
+                crypto_backend="cuda", frontier_linger_ms=linger_ms)
+            rt = ServiceRuntime(config, key, host="localhost", device=device,
+                                transport=transport)
+            port = await rt.start()
+            controller.consensus_addrs.append(f"localhost:{port}")
+            runtimes.append(rt)
+            brain = rt.consensus.brain
+            brain.report_view_change = (
+                lambda h, r, why, inner=brain.report_view_change:
+                (view_changes.append(why), inner(h, r, why)))
+        doc["setup_s"] = time.perf_counter() - t0
+        lag = asyncio.get_running_loop().create_task(_loop_lag(lags))
+        t0 = time.perf_counter()
+        config = controller.current_config()
+        for rt in runtimes:  # no await between: no engine starts early
+            rt.consensus.proc_reconfigure(config)
+        doc["reconfigure_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        await ctrl_server.start()
+        want = warm
+        await controller.wait_for_height(want, timeout_s + 60.0)
+        doc["warm_s"] = time.perf_counter() - t0
+        doc["warm_view_changes"] = len(view_changes)
+        before = _service_totals(runtimes)
+        changes_before, dropped_before = len(view_changes), fabric.dropped
+        del lags[:]
+        kernels.reset_counts()
+        t0 = last = time.perf_counter()
+        height_ms = []
+        for want in range(warm + 1, warm + heights + 1):
+            await controller.wait_for_height(want, timeout_s)
+            now = time.perf_counter()
+            height_ms.append((now - last) * 1e3)
+            last = now
+        doc["total_s"] = last - t0
+        doc["dropped"] = fabric.dropped - dropped_before
+        doc["loop_lag_ms"] = _lag_summary(lags)
+        doc["launches"] = kernels.counts()
+        doc["launch_lanes"] = {k: kernels.size_buckets(v) for k, v in
+                               kernels.sizes().items() if v}
+        after = _service_totals(runtimes)
+        doc["view_changes"] = {}
+        for why in view_changes[changes_before:]:
+            doc["view_changes"][why] = doc["view_changes"].get(why, 0) + 1
+        doc["height_ms"] = height_ms
+        node0 = runtimes[0].consensus.crypto
+        qc0 = dict(node0.degraded_status()["calls"]["verify_aggregated"])
+        doc["check_block"] = await check_blocks(
+            runtimes[0], controller, range(warm + 1, warm + heights + 1),
+            transport)
+        qc1 = node0.degraded_status()["calls"]["verify_aggregated"]
+        doc["check_block"]["on"] = {w: qc1[w] - qc0[w]
+                                    for w in ("device", "host")}
+        doc["surface"] = await asyncio.to_thread(
+            read_surface, runtimes[0].metrics_port)
+        final = _service_totals(runtimes)
+        doc["committed"] = controller.latest_height
+    except asyncio.TimeoutError:
+        import collections
+
+        if runtimes and runtimes[0].recorder is not None:
+            print(runtimes[0].recorder.dump(16), file=sys.stderr)
+        print(json.dumps({
+            "committed": controller.latest_height,
+            "nodes_at": collections.Counter(
+                f"h{rt.consensus.engine.height}r{rt.consensus.engine.round}"
+                for rt in runtimes),
+            "view_changes": collections.Counter(view_changes),
+            "dropped": fabric.dropped,
+            "loop_lag_ms": _lag_summary(lags)}), file=sys.stderr)
+        raise
+    finally:
+        if lag is not None:
+            lag.cancel()
+        for rt in runtimes:
+            await rt.stop(0.5)
+        for server in servers:
+            await server.stop(0.5)
+        await controller.close()
+        await fabric.close()
+        tmp.cleanup()
+    doc["before"], doc["after"], doc["final"] = before, after, final
+    return doc
+
+
+def service_report(doc: dict, validators: int, heights: int) -> dict:
+    """The phase line from drive_service's document: ms per height, and
+    per path device calls against host calls over the whole run (pubkey
+    updates happen at start) or the measured heights."""
+    import statistics
+
+    before, after, final = doc["before"], doc["after"], doc["final"]
+    srt = sorted(doc["height_ms"])
+
+    def delta(path: str, where: str) -> int:
+        return (after["status"]["calls"][path][where]
+                - before["status"]["calls"][path][where])
+
+    batches = after["batches"] - before["batches"]
+    st = final["status"]
+    return {
+        "phase": "service", "deployment": "bls64-service",
+        "transport": doc["transport"], "validators": validators,
+        "heights": heights, "setup_s": doc["setup_s"],
+        "reconfigure_s": doc["reconfigure_s"],
+        "warm_s": doc["warm_s"], "total_s": doc["total_s"],
+        "ms_per_height": doc["total_s"] * 1e3 / heights,
+        "height_ms": doc["height_ms"],
+        "p50_ms": statistics.median(srt),
+        "p95_ms": srt[min(len(srt) - 1, int(0.95 * len(srt)))],
+        "update_pubkeys": st["pubkey_updates"],
+        "aggregate": {w: delta("aggregate", w) for w in ("device", "host")},
+        "qc_verify": {w: delta("verify_aggregated", w)
+                      for w in ("device", "host")},
+        "frontier": {
+            "batches": batches,
+            "device_rounds": delta("verify_batch", "device"),
+            "host_batches": delta("verify_batch", "host"),
+            "mean_lanes": (after["requests"] - before["requests"])
+            / max(batches, 1),
+            "max_lanes_with_warm": after["max_lanes"]},
+        "check_block": doc["check_block"],
+        "launches": doc["launches"], "launch_lanes": doc["launch_lanes"],
+        "view_changes": doc["view_changes"],
+        "warm_view_changes": doc["warm_view_changes"],
+        "breaker_failures": st["total_failures"],
+        "pairing_host_fallbacks": st["pairing_host_fallbacks"],
+        "reverified": final["reverified"],
+        "device_faults": final["device_faults"],
+        "dropped": doc["dropped"], "loop_lag_ms": doc["loop_lag_ms"],
+        "committed": doc["committed"], "surface": doc["surface"]}
+
+
+def service_failures(out: dict) -> list:
+    """What fails the service phase: a kernel of the path never launched,
+    a device fault, host pairing, re-verify or breaker failure, a pubkey
+    update, QC call or CheckBlock on the host, a wrong CheckBlock
+    verdict, a /metrics without the commit latency or a /statusz without
+    its sections.  (A missed height raises in drive_service.)"""
+    bad = []
+    idle = [k for k in SERVICE_KERNELS if not out["launches"].get(k)]
+    if idle:
+        bad.append(f"the measured heights never launched {idle}")
+    for key in ("breaker_failures", "pairing_host_fallbacks", "reverified",
+                "device_faults"):
+        if out[key]:
+            bad.append(f"{key}: {out[key]}")
+    for path in ("update_pubkeys", "aggregate", "qc_verify"):
+        if out[path]["host"] or not out[path]["device"]:
+            bad.append(f"{path} ran on the host: {out[path]}")
+    cb = out["check_block"]
+    if cb["wrong"]:
+        bad.append(f"wrong CheckBlock verdicts: {cb['wrong']}")
+    if cb["on"]["host"] or cb["on"]["device"] != cb["signature_checks"]:
+        bad.append(f"CheckBlock's signature checks did not run on the "
+                   f"card: {cb['on']}")
+    if not out["surface"]["commit_latency_seconds"]:
+        bad.append("/metrics lacks consensus_commit_latency_seconds")
+    missing = [s for s in SERVICE_SECTIONS
+               if s not in out["surface"]["sections"]]
+    if missing:
+        bad.append(f"/statusz lacks {missing}")
+    return bad
+
+
+def service_fleet(kernels) -> dict:
+    """The service phase (deployment bls64-service) on the card."""
+    transport = service_transport()
+    try:
+        doc = asyncio.run(drive_service(
+            kernels, SERVICE_VALIDATORS, "cuda", transport,
+            SERVICE_WARM_HEIGHTS, SERVICE_HEIGHTS, SERVICE_INTERVAL_S,
+            SERVICE_TIMEOUT_S, SERVICE_LINGER_MS))
+    except asyncio.TimeoutError as e:
+        fail(f"service: a height was missed: {e}")
+    out = service_report(doc, SERVICE_VALIDATORS, SERVICE_HEIGHTS)
+    bad = service_failures(out)
+    if bad:
+        fail(f"service: {'; '.join(bad)}: {out}")
+    if any(m == "jax" or m.startswith(("jax.", "consensus_overlord_tpu."))
+           or m == "consensus_overlord_tpu" for m in sys.modules):
+        fail("service: the service imported JAX or the JAX package")
+    return out
+
+
 # -- main path -------------------------------------------------------------------
 
 def provider_health(prov, phase: str) -> dict:
@@ -1481,6 +1862,7 @@ def main(argv=None) -> int:
     emit(degraded(prov, s0, hashes[0], pks, sigs[0]))
     emit(pinned_upload(torch, prov, card, sigs[0], hashes[0], pks))
     emit(sim_fleet(torch, kernels, args.seed))
+    emit(service_fleet(kernels))
 
     # Host-clock phases first: the profiled round runs last.
     emit(pairing_ab(torch, prov, s0, sigs[0], hashes[0], pks,

@@ -10,3 +10,5 @@ csrc/, built with nvcc into _build/ at first use (ops/kernels.py).
 Entry points run on the card (device="cuda") unless the caller asks for
 the CPU, where each kernel's plain PyTorch version runs instead.
 """
+
+__version__ = "0.1.0"

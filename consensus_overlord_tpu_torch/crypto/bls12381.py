@@ -328,9 +328,11 @@ def _pt_neg(pt, ops):
     return (pt[0], ops.neg(pt[1]))
 
 
-def _pt_mul(pt, k, ops):
+def _pt_mul_affine(pt, k, ops):
+    """k·pt by affine double-and-add (an inversion a step): the plain
+    form the Jacobian ladder below is tested against."""
     if k < 0:
-        return _pt_mul(_pt_neg(pt, ops), -k, ops)
+        return _pt_mul_affine(_pt_neg(pt, ops), -k, ops)
     result = None
     while k:
         if k & 1:
@@ -338,6 +340,67 @@ def _pt_mul(pt, k, ops):
         pt = _pt_double(pt, ops)
         k >>= 1
     return result
+
+
+def _jac_double(p, ops):
+    """2·(X, Y, Z) in Jacobian coordinates on y² = x³ + b (a = 0;
+    dbl-2009-l); Z = 0 is the point at infinity."""
+    x, y, z = p
+    if z == ops.zero or y == ops.zero:
+        return (ops.one, ops.one, ops.zero)
+    a = ops.sq(x)
+    b = ops.sq(y)
+    c = ops.sq(b)
+    d = ops.scalar(ops.sub(ops.sub(ops.sq(ops.add(x, b)), a), c), 2)
+    e = ops.scalar(a, 3)
+    x3 = ops.sub(ops.sq(e), ops.scalar(d, 2))
+    y3 = ops.sub(ops.mul(e, ops.sub(d, x3)), ops.scalar(c, 8))
+    return (x3, y3, ops.scalar(ops.mul(y, z), 2))
+
+
+def _jac_add_affine(p, q, ops):
+    """(X, Y, Z) + affine q (madd-2007-bl), q not infinity."""
+    x1, y1, z1 = p
+    if z1 == ops.zero:
+        return (q[0], q[1], ops.one)
+    z1z1 = ops.sq(z1)
+    u2 = ops.mul(q[0], z1z1)
+    s2 = ops.mul(ops.mul(q[1], z1), z1z1)
+    h = ops.sub(u2, x1)
+    r = ops.sub(s2, y1)
+    if h == ops.zero:
+        if r == ops.zero:
+            return _jac_double(p, ops)
+        return (ops.one, ops.one, ops.zero)
+    hh = ops.sq(h)
+    i = ops.scalar(hh, 4)
+    j = ops.mul(h, i)
+    r = ops.scalar(r, 2)
+    v = ops.mul(x1, i)
+    x3 = ops.sub(ops.sub(ops.sq(r), j), ops.scalar(v, 2))
+    y3 = ops.sub(ops.mul(r, ops.sub(v, x3)), ops.scalar(ops.mul(y1, j), 2))
+    z3 = ops.sub(ops.sub(ops.sq(ops.add(z1, h)), z1z1), hh)
+    return (x3, y3, z3)
+
+
+def _pt_mul(pt, k, ops):
+    """k·pt: a left-to-right Jacobian ladder with one inversion at the
+    end (the affine double-and-add inverts at every step)."""
+    if k < 0:
+        return _pt_mul(_pt_neg(pt, ops), -k, ops)
+    if pt is None or k == 0:
+        return None
+    acc = (ops.one, ops.one, ops.zero)
+    for bit in bin(k)[2:]:
+        acc = _jac_double(acc, ops)
+        if bit == "1":
+            acc = _jac_add_affine(acc, pt, ops)
+    x, y, z = acc
+    if z == ops.zero:
+        return None
+    zinv = ops.inv(z)
+    zinv2 = ops.sq(zinv)
+    return (ops.mul(x, zinv2), ops.mul(y, ops.mul(zinv2, zinv)))
 
 
 # Public G1/G2 wrappers.

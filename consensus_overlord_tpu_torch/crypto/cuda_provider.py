@@ -412,6 +412,8 @@ class CudaBlsCrypto:
         self.calls = {path: {"device": 0, "host": 0}
                       for path in ("verify_batch", "aggregate",
                                    "verify_aggregated")}
+        #: The same for update_pubkeys calls that had keys to validate.
+        self.pubkey_updates = {"device": 0, "host": 0}
         self._calls_lock = threading.Lock()
         # Guards the cache and its device copy: a reconfigure may race a
         # verify that is gathering rows.
@@ -455,6 +457,7 @@ class CudaBlsCrypto:
         doc["g2_table_msm"] = False
         with self._calls_lock:
             doc["calls"] = {p: dict(c) for p, c in self.calls.items()}
+            doc["pubkey_updates"] = dict(self.pubkey_updates)
         return doc
 
     def _count(self, path: str, where: str) -> None:
@@ -627,8 +630,20 @@ class CudaBlsCrypto:
         return box["result"]
 
     def _host_verify(self, signatures, hashes, voters) -> List[bool]:
-        return [self._cpu.verify_signature(s, h, v)
-                for s, h, v in zip(signatures, hashes, voters)]
+        """Each lane on the host oracle: a voter whose key the cache holds
+        (validated once, on reconfigure) verifies against its cached
+        point, a key the cache knows bad verifies nothing, and any other
+        voter goes through CpuBlsCrypto with its own key decompression
+        and subgroup check.  The verdicts are CpuBlsCrypto's either way."""
+        index = self._pk.index
+        out = []
+        for s, h, v in zip(signatures, hashes, voters):
+            row = index.get(bytes(v))
+            if row is None:
+                out.append(self._cpu.verify_signature(s, h, v))
+            else:
+                out.append(row >= 0 and self._verify_one_cached(s, h, v))
+        return out
 
     # -- provider surface ----------------------------------------------------
 
@@ -1179,7 +1194,8 @@ class CudaBlsCrypto:
     def _verify_one_cached(self, sig: bytes, hash32: bytes,
                            voter: bytes) -> bool:
         """One lane on the host oracle against its cached pubkey."""
-        row = self._pk.index.get(bytes(voter), -1)
+        pk = self._pk  # one snapshot: load_pubkey_cache swaps the object
+        row = pk.index.get(bytes(voter), -1)
         if row < 0:
             return False
         try:
@@ -1190,19 +1206,28 @@ class CudaBlsCrypto:
             return False
         h = oracle.hash_to_g1(hash32, self._common_ref)
         return oracle.multi_pairing_is_one([(sig_pt, _NEG_G2_ORACLE),
-                                            (h, self._pk.aff[row])])
+                                            (h, pk.aff[row])])
 
     # -- pubkey cache --------------------------------------------------------
 
-    @_issuing
     def update_pubkeys(self, voters: Sequence[bytes]) -> None:
         """Validate and cache a validator set's public keys (the analog of
         the reference's pubkey cache refresh on reconfigure,
         src/consensus.rs:131-136, 622-629); a bad key is cached as bad.
         Sets below qc_device_threshold, and every set while the breaker
         fences the device off, validate on the host; a device failure
-        falls back to the host before anything is appended."""
+        falls back to the host before anything is appended.  A set that
+        is cached already returns without taking the issue lock: a
+        service calls this on every reconfigure and commit, from its
+        event loop."""
         voters = [bytes(v) for v in voters]
+        index = self._pk.index
+        if all(v in index for v in voters):
+            return
+        self._update_pubkeys(voters)
+
+    @_issuing
+    def _update_pubkeys(self, voters: List[bytes]) -> None:
         with self._pk_lock:
             fresh = list(dict.fromkeys(v for v in voters
                                        if v not in self._pk.index))
@@ -1210,11 +1235,13 @@ class CudaBlsCrypto:
                 return
             if (len(fresh) < self._qc_threshold
                     or not self._device_allowed("update_pubkeys")):
+                self._count_pubkeys("host")
                 self._update_pubkeys_host(fresh)
                 return
             n = len(fresh)
             try:
                 self.breaker.raise_if_injected("update_pubkeys")
+                self._count_pubkeys("device")
                 size = _pad_to(n)
                 parsed = dev.parse_g2_compressed(fresh)
                 x = np.zeros((size, 2, dev.FQ.n), np.int32)
@@ -1240,6 +1267,10 @@ class CudaBlsCrypto:
             self._pk.append(fresh, px, py, pz,
                             _g2_oracle_points(ax, ay, ainf, valid), valid)
             self._pk_dev = None  # the device copy is stale
+
+    def _count_pubkeys(self, where: str) -> None:
+        with self._calls_lock:
+            self.pubkey_updates[where] += 1
 
     def _update_pubkeys_host(self, voters: List[bytes]) -> None:
         """Host-oracle twin of the device validation: decompress +

@@ -51,6 +51,16 @@ class CryptoProvider(Protocol):
                                     voters: Sequence[bytes]) -> bool: ...
 
 
+def load_private_key(path: str) -> int:
+    """Read a hex-encoded 32-byte scalar (reference src/consensus.rs:348-350,
+    example/private_key)."""
+    with open(path, "r", encoding="utf-8") as f:
+        hex_str = f.read().strip()
+    if hex_str.startswith("0x"):
+        hex_str = hex_str[2:]
+    return int(hex_str, 16)
+
+
 class CpuBlsCrypto:
     """Reference-faithful BLS12-381 min-sig provider (CPU oracle).
 

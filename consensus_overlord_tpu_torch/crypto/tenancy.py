@@ -291,6 +291,14 @@ class TenantLane:
         return await self._core.aggregate(signatures, voters)
 
     @property
+    def last_agg_round_id(self) -> Optional[int]:
+        """Round id of the core's most recent aggregate-path dispatch
+        (the engine reads it through its lane handle right after a QC
+        verify/aggregate await to link the commit trace — see
+        SharedFrontier.last_agg_round_id)."""
+        return self._core.last_agg_round_id
+
+    @property
     def fault(self) -> Optional[BaseException]:
         """The core's first device fault (SharedFrontier.fault)."""
         return self._core.fault
@@ -352,6 +360,13 @@ class SharedFrontier:
         self._owns_fallback = getattr(provider, "breaker", None) is not None
         #: The first device fault, for the run to fail on.
         self.fault: Optional[BaseException] = None
+        #: Round id (obs/fleet.py) of the most recent QC aggregate-path
+        #: dispatch (verify_aggregated / aggregate): the causal commit
+        #: tracer reads it right after its await resolves, linking the
+        #: commit trace's qc_verify stage to the device-profile ring
+        #: records the dispatch produced.  Best-effort under
+        #: concurrency — provenance, not accounting.
+        self.last_agg_round_id: Optional[int] = None
         self.stats = FrontierStats()
 
     # -- tenancy -----------------------------------------------------------
@@ -474,6 +489,7 @@ class SharedFrontier:
         it produces join the commit trace's qc_verify stage on the id."""
         dispatch = getattr(self._provider, "verify_aggregated_async", None)
         round_id = next_round_id()
+        self.last_agg_round_id = round_id
         try:
             if dispatch is None:
                 def _host():
@@ -496,6 +512,7 @@ class SharedFrontier:
         dispatch = getattr(self._provider, "aggregate_signatures_async",
                            None)
         round_id = next_round_id()
+        self.last_agg_round_id = round_id
         try:
             if dispatch is None:
                 def _host():

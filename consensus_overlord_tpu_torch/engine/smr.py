@@ -214,7 +214,8 @@ class Engine:
 
     def __init__(self, name: Address, adapter: ConsensusAdapter,
                  crypto: CryptoProvider, wal: Wal,
-                 frontier=None, tracer=None, metrics=None, recorder=None):
+                 frontier=None, tracer=None, metrics=None, recorder=None,
+                 causal=None):
         self.name = bytes(name)
         self.adapter = adapter
         self.crypto = crypto
@@ -235,6 +236,13 @@ class Engine:
         #: without a verifier actually guarding the injection path.
         self.frontier = frontier
         self.inbound_verified = frontier is not None
+        #: Optional obs.prof.ProfileSession: torch.profiler capture over
+        #: whole consensus rounds.  The engine only pings it at round
+        #: boundaries (on_round decides when a capture opens/closes —
+        #: profile_every_n_rounds cadence or a /debug/profile request);
+        #: None = zero hot-path overhead.  Assigned by the service /
+        #: sim wiring, one per process (the profiler is process-wide).
+        self.profile = None
         #: Optional span exporter (obs/tracing.JaegerExporter).  The
         #: reference #[instrument]s its consensus entry points
         #: (src/main.rs:91,106,132; src/consensus.rs:96,143,209); here the
@@ -243,6 +251,13 @@ class Engine:
         #: a Jaeger trace shows consensus progress, not just RPC
         #: envelopes.  Lossy/no-op when unset; never blocks the loop.
         self.tracer = tracer
+        #: Optional obs.causal.CommitTracer: the causal commit tracer.
+        #: The engine stamps receive/verify/quorum/commit events into it
+        #: (keyed by message identity, on the shared monotonic clock the
+        #: sim router's delivery envelopes use) so per-height commit
+        #: latency decomposes into an attributed critical path.  None =
+        #: zero hot-path overhead — every hook is one attribute check.
+        self.causal = causal
         self._trace_id = 0
         self._height_span_id = 0
         self._height_start_us = 0
@@ -366,6 +381,9 @@ class Engine:
                 self.recorder.record("wal_recovery", height=start_height,
                                      round=start_round)
         self._trace_begin_height()
+        if self.causal is not None:
+            self.causal.on_enter_height(self.name, self.height,
+                                        time.monotonic())
         await self._enter_round(start_round)
         try:
             while self._running:
@@ -404,6 +422,8 @@ class Engine:
         the message's signature claim is batch-verified first and bad
         signatures are dropped here; without one, the engine's per-message
         verifies in the handlers apply.  Returns False iff dropped."""
+        if self.causal is not None:
+            self.causal.on_recv(self.name, msg, time.monotonic(), None)
         if self.frontier is not None:
             span_id, parent, start_us = self._child_span_begin()
             ok = await self.frontier.verify_msg(msg)
@@ -430,14 +450,25 @@ class Engine:
         self.handler.send_msg(msg)
         return True
 
-    async def inject_inbound_batch(self, msgs) -> int:
+    async def inject_inbound_batch(self, msgs, envelopes=None) -> int:
         """Batched twin of inject_inbound for the sharded sim fabric's
         per-tick delivery passes (sim/router.py): every frontier claim
         in the batch is submitted synchronously before any verdict is
         awaited, so ONE linger window covers the whole pass — and the
         await is a gather over already-enqueued futures, not a task per
         message.  Mailbox order preserves arrival order.  Returns the
-        number of messages accepted."""
+        number of messages accepted.
+
+        envelopes: optional parallel list of router delivery envelopes
+        (enq, due, trunk_drain, delivered, via_trunk) — decoded messages
+        are shared across targets so per-delivery provenance rides this
+        side channel into the causal tracer, never the message object."""
+        if self.causal is not None:
+            now = time.monotonic()
+            for i, msg in enumerate(msgs):
+                self.causal.on_recv(
+                    self.name, msg, now,
+                    envelopes[i] if envelopes is not None else None)
         if self.frontier is None:
             for msg in msgs:
                 self.handler.send_msg(msg)
@@ -560,7 +591,13 @@ class Engine:
         pc = (0 if self._my_precommit_round is None
               else self._my_precommit_round + 1)
         data = rlp.encode([self.height, self.round, pv, pc, lock_item])
-        await self.wal.save(data)
+        if self.causal is None:
+            await self.wal.save(data)
+        else:
+            t0 = time.monotonic()
+            await self.wal.save(data)
+            self.causal.on_wal_save(self.name, self.height,
+                                    time.monotonic() - t0)
 
     async def _load_wal(self) -> Optional["_WalState"]:
         """Parse (never apply — run() decides) the persisted state."""
@@ -623,9 +660,20 @@ class Engine:
         if self.recorder is not None:
             self.recorder.record("enter_height", height=status.height,
                                  committed=committed)
+        if self.causal is not None and status.height == self.height + 1:
+            # A single-step advance means this node watched the height
+            # settle in real time (its own adapter commit, or the first
+            # committer's status push) — finalize the open commit trace.
+            # Multi-height resync jumps abandoned the height instead;
+            # their open traces are pruned, never sampled as latency.
+            self.causal.on_height_settled(self.name, self.height,
+                                          time.monotonic())
         self._last_commit_ts = asyncio.get_running_loop().time()
         self.height = status.height
         self._trace_begin_height()
+        if self.causal is not None:
+            self.causal.on_enter_height(self.name, self.height,
+                                        time.monotonic())
         self.round = 0
         if status.interval:
             self.interval_ms = status.interval
@@ -650,6 +698,8 @@ class Engine:
         self.round = round_
         self.step = Step.PROPOSE
         self._trace_begin_round()
+        if self.profile is not None:
+            self.profile.on_round(self.height, round_)
         self._cancel_timers()
         if self.recorder is not None:
             self.recorder.record("enter_round", height=self.height,
@@ -766,9 +816,9 @@ class Engine:
         each task owns a contextvar copy, so no reset is needed."""
         if self.tracer is None or span_id == 0:
             return
-        # The port has no gRPC Brain yet: the contextvars this binds
-        # (obs/logctx.py) come with the service, and until then an
-        # engine span has no outbound call to stamp.
+        from ..obs.logctx import span_context, trace_context
+        trace_context.set(f"{self._trace_id:032x}")
+        span_context.set(f"{span_id:016x}")
 
     # -- statusz -----------------------------------------------------------
 
@@ -830,6 +880,9 @@ class Engine:
         sig = self.crypto.sign(sm3_hash(proposal.encode()))
         sp = SignedProposal(proposal, sig)
         self._contents[msg.block_hash] = msg.content
+        if self.causal is not None:
+            self.causal.on_proposal_sent(self.name, msg.height, msg.round,
+                                         self.name, time.monotonic())
         await self.adapter.broadcast_to_other(
             MSG_TYPE_SIGNED_PROPOSAL, sp.encode())
         await self._on_signed_proposal(sp)  # self-delivery
@@ -1009,12 +1062,21 @@ class Engine:
             return False
         vote_hash = sm3_hash(qc.to_vote().encode())
         start_us = int(time.time() * 1e6)
+        t0 = time.monotonic()
         if self.frontier is not None:
             ok = await self.frontier.verify_aggregated(
                 qc.signature.signature, vote_hash, voters)
         else:
             ok = self.crypto.verify_aggregated_signature(
                 qc.signature.signature, vote_hash, voters)
+        if self.causal is not None:
+            # The frontier round-tags its aggregate dispatch; reading
+            # the id right after the await links this trace's qc_verify
+            # stage to the device-profile ring records the dispatch
+            # produced (host path: no frontier, no ring to join).
+            self.causal.on_qc_verify(
+                self.name, qc.height, time.monotonic() - t0,
+                round_id=getattr(self.frontier, "last_agg_round_id", None))
         if not ok:
             self._reject_byzantine("bad_qc_sig", qc_height=qc.height,
                                    qc_round=qc.round, voters=len(voters))
@@ -1079,6 +1141,9 @@ class Engine:
         vote = Vote(self.height, round_, vote_type, block_hash)
         sig = self.crypto.sign(sm3_hash(vote.encode()))
         sv = SignedVote(self.name, sig, vote)
+        if self.causal is not None:
+            self.causal.on_vote_sent(self.name, self.height, round_,
+                                     vote_type, self.name, time.monotonic())
         relayer = self.leader(self.height, round_)
         if relayer == self.name:
             await self._on_signed_vote(sv)
@@ -1142,6 +1207,12 @@ class Engine:
         if (vote_set.weight_by_hash.get(block_hash, 0)
                 < quorum_weight(self._total_weight())):
             return
+        t_quorum = time.monotonic()
+        if self.causal is not None:
+            # The (2f+1)-th vote just landed at the relayer: the quorum
+            # tail for this height ends here on the leader's clock.
+            self.causal.on_quorum(self.name, vote_type, self.height, round_,
+                                  t_quorum, len(votes))
         # Aggregate in sorted-voter order so the signature matches the
         # bitmap extraction order at every verifier.
         pairs = sorted(votes.items())
@@ -1153,6 +1224,10 @@ class Engine:
         else:
             agg_sig = self.crypto.aggregate_signatures(
                 [sig for _, sig in pairs], [voter for voter, _ in pairs])
+        if self.causal is not None:
+            self.causal.on_aggregate(
+                self.name, self.height, time.monotonic() - t_quorum,
+                round_id=getattr(self.frontier, "last_agg_round_id", None))
         qc = AggregatedVote(
             signature=AggregatedSignature(
                 agg_sig, build_bitmap(self.authorities, [v for v, _ in pairs])),
@@ -1255,6 +1330,8 @@ class Engine:
             # forward before its own _Committed message is processed,
             # and the commit this node drove must still count.
             self.metrics.committed_heights.inc()
+        if ok and status is not None and self.causal is not None:
+            self.causal.on_commit(self.name, height, time.monotonic())
         self._emit_span("consensus.commit", span_id, parent, start_us,
                         {"height": str(height), "ok": str(ok).lower()})
         self._mailbox.put_nowait(_Committed(height, status))

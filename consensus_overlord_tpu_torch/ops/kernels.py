@@ -38,6 +38,8 @@ from typing import Dict, List, Sequence, Tuple
 import numpy as np
 import torch
 
+from .. import compile_cache
+
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
@@ -314,7 +316,9 @@ def _write_header(header: str) -> None:
 
 def _start_build(lib: str, header: str):
     so = _so_path(lib, header)
-    if os.path.exists(so):
+    built = os.path.exists(so)
+    compile_cache.record(hit=built)
+    if built:
         return None
     _write_header(header)
     tmp = f"{so}.{os.getpid()}.tmp"

@@ -11,7 +11,8 @@ This is also the scaffold for the BASELINE.md measurement configs
 
 The port's own copy of consensus_overlord_tpu/sim/ (the port imports
 nothing of the JAX package).  The chaos schedules (sim/chaos.py) are not
-ported yet.
+ported yet.  sim/grpc_fakes.py holds the service's fake siblings (the
+network service and the controller), on either RPC transport.
 """
 
 from .harness import SimNetwork, SimNode  # noqa: F401

@@ -146,8 +146,12 @@ def test_cuda_device_without_a_card_raises():
 
 def test_port_imports_neither_jax_nor_the_jax_package():
     """Importing every module of the port leaves jax and the JAX package
-    out of sys.modules, and no source file names them in an import."""
+    out of sys.modules, and no source file names them in an import; nor
+    prometheus_client or google.protobuf, and grpc only inside a function
+    of service/rpc.py (the gRPC wire, built on demand).  Every module
+    imports with grpc, prometheus_client and google.protobuf blocked."""
     pkg = os.path.join(REPO, "consensus_overlord_tpu_torch")
+    rpc = os.path.join(pkg, "service", "rpc.py")
     modules = []
     for root, dirs, files in os.walk(pkg):
         dirs[:] = [d for d in dirs if d != "_build"]  # build outputs
@@ -159,6 +163,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             modules.append(rel.removesuffix(".__init__"))
             with open(path, encoding="utf-8") as fh:
                 tree = ast.parse(fh.read())
+            top_level = set(map(id, tree.body))
             for node in ast.walk(tree):
                 names = ([a.name for a in node.names]
                          if isinstance(node, ast.Import) else
@@ -166,22 +171,45 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                          if isinstance(node, ast.ImportFrom) else [])
                 for name in names:
                     top = name.split(".")[0]
-                    assert top not in ("jax", "jaxlib",
-                                       "consensus_overlord_tpu"), (path, name)
-    for module in ("consensus_overlord_tpu_torch.crypto.breaker",
+                    assert top not in ("jax", "jaxlib", "consensus_overlord_tpu",
+                                       "prometheus_client", "google"), (
+                        path, name)
+                    if top == "grpc":
+                        assert path == rpc and id(node) not in top_level, (
+                            path, name)
+    for module in ("consensus_overlord_tpu_torch.compile_cache",
+                   "consensus_overlord_tpu_torch.crypto.breaker",
                    "consensus_overlord_tpu_torch.crypto.cuda_provider",
                    "consensus_overlord_tpu_torch.crypto.tenancy",
                    "consensus_overlord_tpu_torch.engine.smr",
+                   "consensus_overlord_tpu_torch.obs.anomaly",
+                   "consensus_overlord_tpu_torch.obs.causal",
                    "consensus_overlord_tpu_torch.obs.fleet",
+                   "consensus_overlord_tpu_torch.obs.logctx",
+                   "consensus_overlord_tpu_torch.obs.metrics",
                    "consensus_overlord_tpu_torch.obs.prof",
+                   "consensus_overlord_tpu_torch.obs.telemetry",
+                   "consensus_overlord_tpu_torch.service.brain",
+                   "consensus_overlord_tpu_torch.service.config",
+                   "consensus_overlord_tpu_torch.service.consensus",
+                   "consensus_overlord_tpu_torch.service.main",
+                   "consensus_overlord_tpu_torch.service.pb."
+                   "consensus_overlord_pb2",
+                   "consensus_overlord_tpu_torch.service.rpc",
+                   "consensus_overlord_tpu_torch.service.server",
+                   "consensus_overlord_tpu_torch.sim.grpc_fakes",
                    "consensus_overlord_tpu_torch.sim.harness",
                    "consensus_overlord_tpu_torch.sim.run"):
         assert module in modules, module
     code = ("import importlib, sys\n"
+            "for m in ('grpc', 'prometheus_client', 'google.protobuf'):\n"
+            "    sys.modules[m] = None\n"
             f"for m in {sorted(modules)!r}:\n"
             "    importlib.import_module(m)\n"
-            "bad = [m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'jaxlib', 'consensus_overlord_tpu')]\n"
+            "bad = [m for m, v in sys.modules.items() if v is not None and "
+            "(m.split('.')[0] in ('jax', 'jaxlib', 'consensus_overlord_tpu',"
+            " 'grpc', 'prometheus_client') or "
+            "m.startswith('google.protobuf'))]\n"
             "print(bad)\n"
             "sys.exit(1 if bad else 0)\n")
     env = dict(os.environ, PYTHONPATH=REPO)
@@ -236,3 +264,51 @@ def test_verify_round_matches_jax_verify_round_fn(cpus, port):
     got = verify_round(*ins)
     for w, g in zip(want, got):
         assert np.array_equal(np.asarray(w), g.numpy())
+
+
+def _off_subgroup_points(rng, group):
+    """Seeded points on the curve (G1: y² = x³ + 4 over Fq; G2: the
+    twist over Fq2) that are almost surely outside the prime-order
+    subgroup: x drawn at random until x³ + b is a square."""
+    pts = []
+    while len(pts) < 3:
+        if group == "g1":
+            x = int(rng.integers(1, 2**62)) * 7919
+            y = joracle.fq_sqrt((x ** 3 + 4) % joracle.P)
+        else:
+            x = (int(rng.integers(1, 2**62)), int(rng.integers(1, 2**62)))
+            b = joracle.fq2_mul_xi((4, 0))
+            y = joracle.fq2_sqrt(joracle.fq2_add(
+                joracle.fq2_mul(joracle.fq2_sq(x), x), b))
+        if y is not None:
+            pts.append((x, y))
+    return pts
+
+
+@pytest.mark.parametrize("group", ["g1", "g2"])
+def test_oracle_scalar_multiply_matches_the_jax_oracle(group):
+    """The port's oracle multiplies by a Jacobian ladder (one inversion a
+    multiply); its products, generators' multiples and subgroup verdicts
+    equal the JAX package's affine double-and-add, at edge scalars
+    (0, 1, r − 1, r, r + 1, negative) and seeded ones, on points in and
+    outside the subgroup and at infinity."""
+    from consensus_overlord_tpu_torch.crypto import bls12381 as oracle
+
+    rng = np.random.default_rng(21 if group == "g1" else 22)
+    mul, jmul = getattr(oracle, f"{group}_mul"), getattr(joracle,
+                                                        f"{group}_mul")
+    ops = oracle._FQ_OPS if group == "g1" else oracle._FQ2_OPS
+    gen = getattr(joracle, f"{group.upper()}_GEN")
+    off = _off_subgroup_points(rng, group)
+    scalars = [0, 1, 2, oracle.R - 1, oracle.R, oracle.R + 1, -3] + [
+        int.from_bytes(rng.bytes(32), "big") for _ in range(4)]
+    for k in scalars:
+        assert mul(gen, k) == jmul(gen, k), k
+        for pt in off + [None]:
+            assert oracle._pt_mul(pt, k, ops) == \
+                oracle._pt_mul_affine(pt, k, ops), k
+    in_sub = getattr(oracle, f"{group}_in_subgroup")
+    j_in_sub = getattr(joracle, f"{group}_in_subgroup")
+    for pt in off + [gen, jmul(gen, 77), None]:
+        assert in_sub(pt) == j_in_sub(pt)
+    assert not any(in_sub(pt) for pt in off)
