@@ -72,7 +72,7 @@ spill in any kernel fails the run.  Then
   service          the same 64 validators through the service's entry
                    points (deployment bls64-service): 64 ServiceRuntimes
                    (crypto_backend "cuda") with fake network siblings on
-                   one fabric and one fake controller (10-s interval),
+                   one fabric and one fake controller (20-s interval),
                    on the gRPC wire where grpc imports, else in process
                    (LoopbackTransport); every node's reconfigure
                    validates the keys on the card before the controller
@@ -87,6 +87,25 @@ spill in any kernel fails the run.  Then
                    breaker failure, or a missing metric or section fails
                    the run;
 
+  ed25519          Ed25519CudaCrypto("cuda").verify_batch on 8192 votes
+                   of 8192 validators (every lane must pass; cold, warm
+                   with the launch counts set to 0 just before, and
+                   profiled), then a 64-lane batch with a wrong signer,
+                   another hash, an undecodable key, s >= L, R with
+                   y >= p, an undecodable R and small-torsion components
+                   in R and in A, verdict for verdict against the port's
+                   cofactored host rule;
+  secp256k1, sm2   the same for Secp256k1Crypto at 1024 lanes (its bad
+                   batch has r = 0 and a high s) and Sm2Crypto at 8192
+                   (r = 0 and r + s = 0 mod n), then one QC of every vote
+                   through verify_aggregated_signature on the card;
+  curves_sim       sim.run's factory for each of the three schemes at 16
+                   validators (device threshold 2), one warm height and
+                   CURVES_SIM_HEIGHTS measured: every height commits,
+                   device calls > 0, the scheme's kernels launched, no
+                   device fault, re-verify or breaker failure, every
+                   proof audited on the host;
+
   pairing_ab       the warm single-hash round with device pairing off,
                    on, on, off (seconds, verifies/s), and the device
                    pairing's own time per flush at 2 and 5 pairs;
@@ -100,11 +119,17 @@ the field and G1 kernels at B = 8192 and at their most frequent and
 lane-heaviest launch sizes in a warm round (g1_add at every size of the
 round); the pairing kernels (phase pairing_kernels) on seeded loose
 limbs at 1, 2 and 5 pairs, the Fq12 multiply at 1, 2, 4 and 5 lanes,
-the final exponentiation at 1 and 3, each also beside its latency bound
+the final exponentiation at 1 and 3, fq_inv (final_exp_kernel on the
+fq_inv12 program: FieldSpec.inv on the card) at 1, 12, 64 and 8192
+elements, each also beside its latency bound
 (its multiply depth times one dependent product of the field core on
 one warp, timed by the measuring kernel tower_probe_kernel with no
 program table), with each program's epochs, steps per warp, registers
-and shared memory.  Each phase prints one JSON line; the kernels
+and shared memory; and the kernels of the three other schemes (phase
+curve_kernels: fq_mul at 26 limbs for each field, ed_add, secp_add,
+secp_dbl, wp_add_general) on seeded loose limbs at the lane count each
+ran most often on its scheme's warm path, with their registers and
+spills.  Each phase prints one JSON line; the kernels
 line, the card's name and power limit, and the contract line close the
 output.  A profiled warm round, last so that the profiler touches no
 host-clock phase, reports the device-busy time by kernel.  Any failure exits non-zero.  Exits 2 without a result when no
@@ -248,11 +273,11 @@ def field_ops(spec) -> dict:
     limb-wise add, a subtraction a + (pad − b) (one IADD3), a negation
     pad − x or a multiple by a small constant (IMAD, LEA or SHF) can
     issue on either pipe ("either")."""
+    from consensus_overlord_tpu_torch.ops import kernels
     n = spec.n
     limbwise = {"imad": 0, "alu": 0, "either": n}
     f = {name: _ops((1, limbwise), (1, plan_ops(spec, name)))
-         for name in ("add2", "sub", "neg", "small2", "small3", "small8",
-                      "small12")}
+         for name in kernels.plan_names(spec) if name != "mul"}
     f["mul"] = _ops((1, {"imad": n * n, "alu": 0, "either": 0}),
                     (1, plan_ops(spec, "mul")))
     f["add"] = f.pop("add2")
@@ -360,7 +385,8 @@ def kernel_checks(torch, launches: dict, operands, card: dict,
                 "plain_ms": time_ms(torch, plain, 10, card["clock_hz"]),
                 "bound_ms": bound_ms, "bound_by": bound_by}
 
-    field = [k for k in kernels.KERNELS if k.name not in PAIRING]
+    field = [k for k in kernels.BLS_KERNELS
+             if k.name in ("fq_mul", "g1_add", "g1_dbl")]
     rows = [{"name": k.name, "route": k.route, "source": k.source,
              "replaces": k.replaces, "launches": launches[k.name],
              **measure(k.name, LANES), "library_ms": None}
@@ -386,6 +412,7 @@ def pairing_checks(torch, launches: dict, per_flush: dict, card: dict,
     from consensus_overlord_tpu_torch.ops import kernels
     from consensus_overlord_tpu_torch.ops import pairing as pr
     from consensus_overlord_tpu_torch.ops import tower_program
+    from consensus_overlord_tpu_torch.ops.field import BLS12_381_FQ
 
     fq = pr.FQ
     gen = torch.Generator(device="cuda").manual_seed(seed + 4)
@@ -472,8 +499,45 @@ def pairing_checks(torch, launches: dict, per_flush: dict, card: dict,
                                  "max_abs_err", "ms", "plain_ms",
                                  "bound_ms", "bound_by")},
                              "library_ms": None})
+    # FieldSpec.inv on the card: final_exp_kernel on the fq_inv12
+    # program, twelve elements a lane, against the plain inversion
+    # (pow_static over mul_plain) at the paths' element counts: one (each
+    # to_affine of a verify round or QC), 12 (one full lane), 64 and
+    # LANES (the pubkey cache's affine readback).
+    inv_prog = tower_program.program("fq_inv12", BLS12_381_FQ).stats
+    per_elem = {k: c // kernels.FQ_INV_PER_LANE
+                for k, c in inv_prog["by_kind"].items()}
+    inv_ops = _ops(*((c, field_ops(BLS12_381_FQ)[k])
+                     for k, c in per_elem.items()))
+    for elems in (1, 12, 64, LANES):
+        x = loose(elems)
+        run, plain = (lambda: kernels.fq_inv(BLS12_381_FQ, x),
+                      lambda: fq.inv(x))
+        got, want = run(), plain()
+        if not torch.equal(got, want):
+            fail(f"fq_inv differs from the plain inversion at {elems}")
+        bound_ms, bound_by = bound(inv_ops, elems, 2 * 4 * fq.n * elems,
+                                   card["clock_hz"])
+        row = {"name": "fq_inv", "lanes": elems,
+               "max_abs_err": int((got.long() - want.long()).abs().max()),
+               "ms": time_ms(torch, run, 20, card["clock_hz"]),
+               "plain_ms": time_ms(torch, plain, 2, card["clock_hz"]),
+               "bound_ms": bound_ms, "bound_by": bound_by,
+               "latency_bound_ms": inv_prog["mul_depth"] * product_ms}
+        row["binding_bound"] = ("latency" if row["latency_bound_ms"] >
+                                bound_ms else bound_by)
+        measured.append(row)
+        if elems == 1:
+            k = kernels.FQ_INV
+            rows.append({"name": k.name, "route": k.route,
+                         "source": k.source, "replaces": k.replaces,
+                         "launches": launches[k.name],
+                         **{key: row[key] for key in (
+                             "max_abs_err", "ms", "plain_ms", "bound_ms",
+                             "bound_by")},
+                         "library_ms": None})
     programs = {}
-    for name in PAIRING:
+    for name in PAIRING + ("fq_inv12",):
         st = dict(tower_program.program(name, fq).stats)
         st["smem_bytes"] = kernels.tower_smem_bytes(st["registers"])
         st["latency_bound_ms"] = st["mul_depth"] * product_ms
@@ -582,15 +646,22 @@ def crosscheck(prov, s0, sigs, h, pks) -> dict:
 
 _PTXAS_NAME = re.compile(r"(fq_mul_kernel|g1_dbl_kernel|g1_add_kernel|"
                          r"miller_product_kernel|fq12_mul_kernel|"
-                         r"final_exp_kernel)")
+                         r"final_exp_kernel|ed_add_kernel|"
+                         r"wp_add_general_kernel)")
 
 
-def ptxas_report(kernels) -> dict:
+def ptxas_report(kernels, spec=None) -> dict:
     """Registers, stack and spills of every kernel entry, from ptxas's
-    -v report of the build of each library the checkout has."""
+    -v report of the build of each library of a field (default
+    BLS12-381's)."""
+    spec = spec or kernels._default_spec()
+    # A checkout from before the per-field builds (scripts/
+    # torch_kernels_ab.py reads a parent's) builds every library for BLS.
+    libs = (kernels.spec_libs(spec) if hasattr(kernels, "spec_libs")
+            else kernels._LIBS)
     out, cur = {}, None
-    for lib in kernels._LIBS:
-        for line in kernels.build_log(lib).splitlines():
+    for lib in libs:
+        for line in kernels.build_log(lib, spec).splitlines():
             m = re.search(r"Function properties for (\S+)", line)
             if m:
                 k = _PTXAS_NAME.search(m.group(1))
@@ -667,7 +738,8 @@ SIM_LINGER_MS = 50.0
 #: parameter: a height takes the interval plus its work.
 SIM_TIMEOUT_S = 120.0
 #: The kernels every measured height must launch (fq12_mul is reported).
-SIM_KERNELS = ("fq_mul", "g1_add", "g1_dbl", "miller_product", "final_exp")
+SIM_KERNELS = ("fq_mul", "g1_add", "g1_dbl", "miller_product", "final_exp",
+               "fq_inv")
 
 
 #: Upload sizes the pinned_upload phase issues behind queued work: 20 KB
@@ -1045,15 +1117,22 @@ SERVICE_VALIDATORS = 64
 SERVICE_WARM_HEIGHTS = 1
 SERVICE_HEIGHTS = 3
 #: The controller's block interval, in seconds (ConsensusConfiguration
-#: carries whole seconds); 10 s as in the sim phase.
-SERVICE_INTERVAL_S = 10
+#: carries whole seconds).  The round timers are ratios of it (prevote
+#: and precommit 1x, propose 1.5x), and one process verifies all 64
+#: nodes' QCs in turn, about 8 s of a height's chain on an H100 80GB
+#: HBM3 (700 W) host.  At 10 s a slower host crossed the timers: 39
+#: nodes braked into round 1, 25 stayed in round 0, RPCs past their
+#: 10-s deadline dropped, and no height committed within 120 s.  20 s
+#: leaves the timers about 2.5x that chain.
+SERVICE_INTERVAL_S = 20
 SERVICE_LINGER_MS = 50.0
 SERVICE_TIMEOUT_S = 120.0
 #: The kernels every measured height must launch: the leader's QC
 #: aggregates (fq_mul, g1_add) and every QC verify's device pairing.
 #: Vote batches stay below the service's device threshold (32), so
 #: g1_dbl and fq12_mul are reported, not required.
-SERVICE_KERNELS = ("fq_mul", "g1_add", "miller_product", "final_exp")
+SERVICE_KERNELS = ("fq_mul", "g1_add", "miller_product", "final_exp",
+                   "fq_inv")
 #: /statusz sections node 0 must serve.
 SERVICE_SECTIONS = ("crypto", "frontier", "commits", "health")
 
@@ -1164,6 +1243,25 @@ def _lag_summary(lags: list) -> dict:
             "max": srt[-1] * 1e3}
 
 
+async def _settled_qc_verifies(prov, quiet_s: float = 2.0,
+                               limit_s: float = 60.0) -> dict:
+    """The provider's verify_aggregated calls once they have not moved
+    for quiet_s: a QC verify a stopped engine had queued still lands."""
+    import asyncio
+
+    last = dict(prov.degraded_status()["calls"]["verify_aggregated"])
+    t0 = still = time.perf_counter()
+    while time.perf_counter() - still < quiet_s:
+        if time.perf_counter() - t0 > limit_s:
+            fail(f"service: QC verifies still running {limit_s} s after "
+                 "the engines stopped")
+        await asyncio.sleep(0.2)
+        now = dict(prov.degraded_status()["calls"]["verify_aggregated"])
+        if now != last:
+            last, still = now, time.perf_counter()
+    return last
+
+
 async def drive_service(kernels, validators: int, device: str, transport,
                         warm: int, heights: int, interval_s: int,
                         timeout_s: float, linger_ms: float) -> dict:
@@ -1259,8 +1357,13 @@ async def drive_service(kernels, validators: int, device: str, transport,
         for why in view_changes[changes_before:]:
             doc["view_changes"][why] = doc["view_changes"].get(why, 0) + 1
         doc["height_ms"] = height_ms
+        # Quiet the fleet first: node 0's engine verifies QCs on the
+        # provider that serves its CheckBlock, so a height committing
+        # meanwhile would add to CheckBlock's count.
+        for rt in runtimes:
+            rt.consensus.stop()
         node0 = runtimes[0].consensus.crypto
-        qc0 = dict(node0.degraded_status()["calls"]["verify_aggregated"])
+        qc0 = await _settled_qc_verifies(node0)
         doc["check_block"] = await check_blocks(
             runtimes[0], controller, range(warm + 1, warm + heights + 1),
             transport)
@@ -1474,7 +1577,7 @@ def drive_qc(torch, prov, s0, h, pks, sigs, sync):
     oracle_s = time.perf_counter() - t
     if agg != want:
         fail("qc_aggregate: the aggregate differs from CpuBlsCrypto's")
-    idle = [k for k in ("fq_mul", "g1_add") if launches[k] == 0]
+    idle = [k for k in ("fq_mul", "g1_add", "fq_inv") if launches[k] == 0]
     if idle:
         fail(f"qc_aggregate never launched {idle}")
     bad = list(sigs[:64])
@@ -1562,8 +1665,8 @@ def drive_qc(torch, prov, s0, h, pks, sigs, sync):
         fail(f"qc_verify: {len(host_pairings)} host pairings, "
              f"{len(pairing_ms)} device pairings in {len(cases)} calls")
     for c in calls:
-        idle = [k for k in ("fq_mul", "miller_product", "final_exp")
-                if c["launches"][k] == 0]
+        idle = [k for k in ("fq_mul", "miller_product", "final_exp",
+                            "fq_inv") if c["launches"][k] == 0]
         if idle:
             fail(f"qc_verify {c['case']} never launched {idle}")
     rows = torch.tensor([prov._pk.index[v] for v in pks], device=prov.device)
@@ -1739,7 +1842,7 @@ def drive_main_path(prov, s0, hashes, pks, sigs, sync):
         emit({"phase": rnd, "votes": n, "seconds": secs,
               "verifies_per_s": n / secs, "launches": phase_counts[rnd],
               "launch_lanes": {k: kernels.size_buckets(v) for k, v in
-                               phase_sizes[rnd].items()},
+                               phase_sizes[rnd].items() if v},
               **provider_health(prov, rnd)})
 
     # Bad lanes, verdict for verdict against the host oracle provider.
@@ -1794,6 +1897,416 @@ def drive_main_path(prov, s0, hashes, pks, sigs, sync):
     return phase_counts, phase_sizes
 
 
+# -- the Ed25519, secp256k1 and SM2 paths -------------------------------------------
+
+#: Lanes of one batch per scheme (PERF.md §4): ed25519-8192 and sm2-8192
+#: are BASELINE.json config 5's 10k validators cut to the pad ladder's
+#: top rung, secp256k1-1024 config 3's 1k validators.
+CURVE_LANES = {"ed25519": 8192, "secp256k1": 1024, "sm2": 8192}
+#: The kernels each scheme's verify path launches.
+CURVE_KERNELS = {"ed25519": ("fq_mul_ed25519", "ed_add"),
+                 "secp256k1": ("fq_mul_secp256k1", "secp_add", "secp_dbl"),
+                 "sm2": ("fq_mul_sm2", "wp_add_general")}
+#: Lanes of each scheme's adversarial batch.
+CURVE_BAD_LANES = 64
+
+
+def curve_provider(scheme: str, key, **kw):
+    """The scheme's provider of the port for one key (an Ed25519 seed or
+    an ECDSA scalar)."""
+    if scheme == "ed25519":
+        from consensus_overlord_tpu_torch.crypto.ed25519_cuda import (
+            Ed25519CudaCrypto)
+        return Ed25519CudaCrypto(key, **kw)
+    from consensus_overlord_tpu_torch.crypto.ecdsa_cuda import (
+        Secp256k1Crypto, Sm2Crypto)
+    cls = Secp256k1Crypto if scheme == "secp256k1" else Sm2Crypto
+    return cls(key, **kw)
+
+
+def curve_fixtures(seed: int, scheme: str, lanes: int):
+    """Keys of `lanes` validators (Ed25519 seeds, or ECDSA scalars, from
+    SHA-256 of the seed), their public keys and their signatures on one
+    vote hash, made on the host and cached by (scheme, seed, lanes)."""
+    import numpy as np
+    from consensus_overlord_tpu_torch.core.sm3 import sm3_hash
+
+    h = sm3_hash(f"chip_smoke:{seed}:{scheme}:vote".encode())
+    keys = [hashlib.sha256(f"chip_smoke:{seed}:{scheme}:{i}".encode())
+            .digest() for i in range(lanes)]
+    if scheme != "ed25519":
+        keys = [int.from_bytes(k, "big") for k in keys]
+    path = os.path.join(FIXTURE_DIR, f"{scheme}_{seed}_{lanes}.npz")
+    if os.path.exists(path):
+        z = np.load(path)
+        return keys, h, [bytes(r) for r in z["pks"]], [bytes(r) for r in
+                                                        z["sigs"]]
+    pks, sigs = [], []
+    for k in keys:
+        p = curve_provider(scheme, k, device="cpu")
+        pks.append(p.pub_key)
+        sigs.append(p.sign(h))
+    os.makedirs(FIXTURE_DIR, exist_ok=True)
+    tmp = f"{path}.{os.getpid()}.npz"
+    np.savez(tmp, pks=np.frombuffer(b"".join(pks), np.uint8).reshape(
+        lanes, -1), sigs=np.frombuffer(b"".join(sigs), np.uint8).reshape(
+            lanes, -1))
+    os.replace(tmp, path)
+    return keys, h, pks, sigs
+
+
+def _ed_torsion8():
+    """A point of order 8 of edwards25519 (extended ints): [L]·P."""
+    from consensus_overlord_tpu_torch.ops import edwards as ed
+    for y in range(3, 200):
+        x = ed._xrecover(y, 0)
+        if x is None:
+            continue
+        t = ed._ext_mul_ext(ed._ext_of((x, y)), ed.L)
+        four = ed._ext_mul_ext(t, 4)
+        if (four[1] + four[2]) % ed.P == 0:  # [4]T = (0, −1)
+            return t
+    fail("no order-8 point of edwards25519")
+
+
+def curve_bad_batch(scheme: str, keys, h, pks, sigs):
+    """CURVE_BAD_LANES lanes of valid votes with adversarial lanes: a
+    wrong signer, a signature on another hash and an undecodable voter in
+    every scheme; for Ed25519 s ≥ L, R with y ≥ p, an undecodable R and
+    small-torsion components in R and in A (both accepted by the
+    cofactored rule); for secp256k1 r = 0 and a high s; for SM2 r = 0
+    and r + s ≡ 0 (mod n)."""
+    n = CURVE_BAD_LANES
+    sb, vb = list(sigs[:n]), list(pks[:n])
+    sb[3], sb[4] = sb[4], sb[3]                              # wrong signers
+    sb[9] = curve_provider(scheme, keys[9], device="cpu").sign(
+        hashlib.sha256(b"another block").digest())           # another hash
+    if scheme == "ed25519":
+        from consensus_overlord_tpu_torch.ops import edwards as ed
+        vb[13] = (2).to_bytes(32, "little")                  # undecodable A
+        s = int.from_bytes(sb[17][32:], "little")
+        sb[17] = sb[17][:32] + (s + ed.L).to_bytes(32, "little")  # s >= L
+        sb[21] = (ed.P + 3).to_bytes(32, "little") + sb[21][32:]  # y >= p
+        sb[25] = (2).to_bytes(32, "little") + sb[25][32:]    # undecodable R
+        t = _ed_torsion8()
+
+        def sign_with(i, r, r_pt, pk):
+            r_enc = ed._encode_point(ed._affine(r_pt))
+            k = int.from_bytes(hashlib.sha512(r_enc + pk + h).digest(),
+                               "little") % ed.L
+            a = ed._expand_seed(keys[i])[0]
+            return r_enc + ((r + k * a) % ed.L).to_bytes(32, "little")
+
+        sb[29] = sign_with(29, 4242, ed._ext_add(ed._base_mul(4242), t),
+                           vb[29])                           # torsion in R
+        vb[33] = ed._encode_point(ed._affine(ed._ext_add(
+            ed._base_mul(ed._expand_seed(keys[33])[0]), t)))
+        sb[33] = sign_with(33, 777, ed._base_mul(777), vb[33])  # ... in A
+    else:
+        from consensus_overlord_tpu_torch.crypto import ecdsa_cuda
+        order = (ecdsa_cuda.SECP_HOST if scheme == "secp256k1"
+                 else ecdsa_cuda.SM2_HOST).n
+        vb[13] = b"\x02" + bytes(32)                         # undecodable
+        sb[17] = bytes(32) + sb[17][32:]                     # r = 0
+        r = int.from_bytes(sb[21][:32], "big")
+        s = int.from_bytes(sb[21][32:], "big")
+        bad = order - s if scheme == "secp256k1" else order - r
+        sb[21] = sb[21][:32] + bad.to_bytes(32, "big")       # high s / r+s=0
+    return sb, vb
+
+
+def curve_lane_ops(spec) -> dict:
+    """int32 instructions per lane of the 26-limb fields' kernels, by
+    pipe, counted from their field ops (csrc/ed_point.cu,
+    g1_point.cu built with 3b = 21, wp_point.cu)."""
+    f = field_ops(spec)
+    name = spec.name
+    if name == "F_ed25519":
+        return {"fq_mul_ed25519": f["mul"],
+                "ed_add": _ops((9, f["mul"]), (5, f["add"]),
+                               (4, f["sub"]))}
+    if name == "secp256k1_fq":
+        return {"fq_mul_secp256k1": f["mul"],
+                "secp_add": _ops((12, f["mul"]), (12, f["add"]),
+                                 (5, f["sub"]), (1, f["small3"]),
+                                 (2, f["small21"])),
+                "secp_dbl": _ops((8, f["mul"]), (2, f["add"]),
+                                 (1, f["sub"]), (1, f["small8"]),
+                                 (1, f["small21"]), (1, f["small3"]),
+                                 (1, f["small2"]))}
+    return {"fq_mul_sm2": f["mul"],
+            "wp_add_general": _ops((14, f["mul"]), (15, f["add"]),
+                                   (6, f["sub"]), (4, f["small3"]),
+                                   (3, f["neg"]))}
+
+
+def curve_phase(torch, kernels, scheme: str, seed: int) -> dict:
+    """One scheme's verify path at its deployment size through the
+    provider's entry points: a cold and a warm verify_batch of every
+    validator's vote (all must pass; the warm one with the launch counts
+    set to 0 just before and read just after, then once more under
+    torch.profiler for the device-busy split), the adversarial batch
+    verdict for verdict against the port's host rule, and for the ECDSA
+    schemes one QC of every vote through verify_aggregated_signature."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    lanes = CURVE_LANES[scheme]
+    t0 = time.perf_counter()
+    keys, h, pks, sigs = curve_fixtures(seed, scheme, lanes)
+    out = {"phase": scheme, "lanes": lanes,
+           "fixture_s": time.perf_counter() - t0}
+    prov = curve_provider(scheme, keys[0], device="cuda")
+    hs = [h] * lanes
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        got = fn()
+        torch.cuda.synchronize()
+        return got, time.perf_counter() - t
+
+    got, out["cold_s"] = timed(lambda: prov.verify_batch(sigs, hs, pks))
+    if got != [True] * lanes:
+        fail(f"{scheme}: {got.count(False)} valid votes rejected (cold)")
+    kernels.reset_counts()
+    got, out["warm_s"] = timed(lambda: prov.verify_batch(sigs, hs, pks))
+    out["launches"] = {k: kernels.counts()[k] for k in CURVE_KERNELS[scheme]}
+    out["launch_lanes"] = {k: kernels.size_buckets(v) for k, v in
+                           kernels.sizes().items() if v}
+    sizes = {k: dict(v) for k, v in kernels.sizes().items() if v}
+    if got != [True] * lanes:
+        fail(f"{scheme}: {got.count(False)} valid votes rejected (warm)")
+    out["verifies_per_s"] = lanes / out["warm_s"]
+    idle = [k for k, c in out["launches"].items() if not c]
+    if idle:
+        fail(f"{scheme}: the verify path never launched {idle}")
+    with profile(activities=[ProfilerActivity.CUDA]) as trace:
+        got, wall = timed(lambda: prov.verify_batch(sigs, hs, pks))
+    kern = [e for e in trace.key_averages() if e.device_type ==
+            DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in kern) / 1e6
+    out["profiled"] = {
+        "wall_s": wall, "device_busy_s": busy,
+        "device_idle_share": 1 - busy / wall,
+        "kernel_launches": sum(e.count for e in kern),
+        "top_kernels": [{"name": e.key[:48], "calls": e.count,
+                         "ms": e.self_device_time_total / 1e3}
+                        for e in sorted(kern, key=lambda e:
+                                        -e.self_device_time_total)[:6]]}
+
+    sb, vb = curve_bad_batch(scheme, keys, h, pks, sigs)
+    kernels.reset_counts()
+    got, out["bad_s"] = timed(lambda: prov.verify_batch(
+        sb, [h] * len(sb), vb))
+    out["bad_launches"] = {k: kernels.counts()[k]
+                           for k in CURVE_KERNELS[scheme]}
+    want = [prov.verify_signature(s, h, v) for s, v in zip(sb, vb)]
+    if got != want:
+        fail(f"{scheme}: bad-lane verdicts differ from the host rule: "
+             f"{[i for i, (a, b) in enumerate(zip(got, want)) if a != b]}")
+    out["bad_rejected"] = [i for i, v in enumerate(want) if not v]
+    if scheme != "ed25519":
+        agg = prov.aggregate_signatures(sigs, pks)
+        kernels.reset_counts()
+        ok, out["qc_verify_s"] = timed(
+            lambda: prov.verify_aggregated_signature(agg, h, pks))
+        out["qc_launches"] = {k: kernels.counts()[k]
+                              for k in CURVE_KERNELS[scheme]}
+        if ok is not True or not all(out["qc_launches"].values()):
+            fail(f"{scheme}: the QC did not verify on the card: {out}")
+    out["calls"] = prov.degraded_status()["calls"]
+    return out, sizes
+
+
+def curve_kernel_checks(torch, kernels, sizes: dict, launches: dict,
+                        card: dict, seed: int, ptxas: dict):
+    """Each kernel of the three schemes vs its plain version on the card
+    (tolerance 0, torch.equal) on seeded loose limbs, timed beside its
+    bound at the lane count it ran most often on its phase's warm path
+    (the lane-heaviest on a tie)."""
+    from consensus_overlord_tpu_torch.ops import edwards as ed
+    from consensus_overlord_tpu_torch.ops import weierstrass as w
+    from consensus_overlord_tpu_torch.ops.curve import Point
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    rows, phase = [], {"phase": "curve_kernels", "kernels": []}
+    for spec in (ed.FE, w.FQ_SECP, w.FQ_SM2):
+        ops = curve_lane_ops(spec)
+
+        def limbs(lanes, k):
+            t = torch.randint(0, spec.loose_max + 1, (k, lanes, spec.n),
+                              dtype=torch.int32, device="cuda",
+                              generator=gen)
+            t[:, :7] = spec.loose_max
+            return list(t)
+
+        for name, lane_ops_ in ops.items():
+            by = sizes[name]
+            lanes = max(by, key=lambda b: (by[b], b))
+            c = limbs(lanes, 8)
+            if name.startswith("fq_mul"):
+                run, plain = (lambda: spec.mul(c[0], c[1]),
+                              lambda: spec.mul_plain(c[0], c[1]))
+                coords = 3
+            elif name == "ed_add":
+                p, q = ed.EdPoint(*c[:4]), ed.EdPoint(*c[4:])
+                run, plain = (lambda: ed.add(p, q),
+                              lambda: ed.add_plain(p, q))
+                coords = 12
+            elif name == "secp_dbl":
+                p = Point(*c[:3])
+                run, plain = (lambda: w.SECP.dbl(p),
+                              lambda: w.SECP.dbl_plain(p))
+                coords = 6
+            else:
+                ops_ = w.SECP if name == "secp_add" else w.SM2
+                p, q = Point(*c[:3]), Point(*c[3:6])
+                run, plain = (lambda: ops_.add(p, q),
+                              lambda: ops_.add_plain(p, q))
+                coords = 9
+            got, want = run(), plain()
+            got = got if isinstance(got, tuple) else (got,)
+            want = want if isinstance(want, tuple) else (want,)
+            if not all(torch.equal(a, b) for a, b in zip(got, want)):
+                fail(f"{name} differs from its plain version at B = "
+                     f"{lanes}")
+            bound_ms, bound_by = bound(lane_ops_, lanes,
+                                       coords * spec.n * 4 * lanes,
+                                       card["clock_hz"])
+            k = {kk.name: kk for kk in kernels.KERNELS}[name]
+            fn = {"fq_mul": "fq_mul_kernel", "ed_add": "ed_add_kernel",
+                  "secp_add": "g1_add_kernel", "secp_dbl": "g1_dbl_kernel",
+                  "wp_add_general": "wp_add_general_kernel"}[
+                      "fq_mul" if name.startswith("fq_mul") else name]
+            regs = ptxas[spec.name].get(fn, {})
+            if regs.get("spill_stores", 1) or regs.get("spill_loads", 1):
+                fail(f"{name}: spills or missing from the ptxas report")
+            ms = time_ms(torch, run, 100, card["clock_hz"])
+            row = {"name": name, "route": k.route, "source": k.source,
+                   "replaces": k.replaces, "launches": launches[name],
+                   "max_abs_err": max(int((a.long() - b.long()).abs().max())
+                                      for a, b in zip(got, want)),
+                   "ms": ms,
+                   "plain_ms": time_ms(torch, plain, 10, card["clock_hz"]),
+                   "bound_ms": bound_ms, "bound_by": bound_by,
+                   "library_ms": None}
+            rows.append(row)
+            phase["kernels"].append({**row, "lanes": lanes,
+                                     "time_over_bound": ms / bound_ms,
+                                     "registers": regs.get("registers"),
+                                     "spill_stores": regs["spill_stores"]})
+    return rows, phase
+
+
+#: Deployments ed25519-16-sim, secp256k1-16-sim and sm2-16-sim: sim.run's
+#: own factory for each scheme (crypto_factory), 16 validators, device
+#: and QC threshold 2, one warm height and CURVES_SIM_HEIGHTS measured.
+CURVES_SIM_VALIDATORS = 16
+CURVES_SIM_HEIGHTS = 2
+CURVES_SIM_INTERVAL_MS = 5000
+CURVES_SIM_TIMEOUT_S = 120.0
+
+
+def curves_sim(torch, kernels, seed: int) -> dict:
+    """A fleet of each scheme's providers, as sim.run --crypto <scheme>
+    builds it (the breaker-less providers in SimDeviceCrypto, the
+    frontier on): every height must commit, each scheme must make device
+    calls and launch its kernels in the measured heights, with no device
+    fault, re-verify or breaker failure, and every committed proof must
+    pass the scheme's host rule."""
+    import asyncio
+
+    from consensus_overlord_tpu_torch.core.bitmap import extract_voters
+    from consensus_overlord_tpu_torch.core.sm3 import sm3_hash
+    from consensus_overlord_tpu_torch.core.types import (
+        Proof, Vote, VoteType)
+    from consensus_overlord_tpu_torch.sim import SimNetwork
+    from consensus_overlord_tpu_torch.sim import run as sim_run
+
+    out = {"phase": "curves_sim", "validators": CURVES_SIM_VALIDATORS,
+           "warm_heights": 1, "heights": CURVES_SIM_HEIGHTS,
+           "interval_ms": CURVES_SIM_INTERVAL_MS, "device_threshold": 2,
+           "schemes": {}}
+    t_all = time.perf_counter()
+    for scheme in CURVE_KERNELS:
+        args = sim_run.make_parser().parse_args(
+            ["--crypto", scheme, "--validators",
+             str(CURVES_SIM_VALIDATORS), "--device-threshold", "2"])
+        factory = sim_run.crypto_factory(args)
+
+        async def drive():
+            t0 = time.perf_counter()
+            net = SimNetwork(
+                n_validators=CURVES_SIM_VALIDATORS,
+                block_interval_ms=CURVES_SIM_INTERVAL_MS, seed=seed,
+                use_frontier=True, frontier_linger_s=0.002,
+                crypto_factory=factory, sim_device_crypto=True,
+                flight_recorder_capacity=256)
+            doc = {"setup_s": time.perf_counter() - t0}
+            net.start(init_height=1)
+            want = 1
+            try:
+                t0 = time.perf_counter()
+                await net.run_until_height(1, CURVES_SIM_TIMEOUT_S)
+                doc["warm_s"] = time.perf_counter() - t0
+                before = _fleet_totals(net)
+                kernels.reset_counts()
+                t0 = last = time.perf_counter()
+                doc["height_ms"] = []
+                for want in range(2, CURVES_SIM_HEIGHTS + 2):
+                    await net.run_until_height(want, CURVES_SIM_TIMEOUT_S)
+                    now = time.perf_counter()
+                    doc["height_ms"].append((now - last) * 1e3)
+                    last = now
+                doc["total_s"] = last - t0
+                doc["launches"] = {k: kernels.counts()[k]
+                                   for k in CURVE_KERNELS[scheme]}
+                after = _fleet_totals(net)
+            except asyncio.TimeoutError:
+                print(net.dump_flight_recorders(16), file=sys.stderr)
+                fail(f"curves_sim {scheme}: stuck at height "
+                     f"{net.controller.latest_height}, wanted {want}")
+            finally:
+                await net.stop()
+            return net, doc, before, after
+
+        net, doc, before, after = asyncio.run(drive())
+        calls = {w: after["status"]["calls"]["verify_batch"][w]
+                 - before["status"]["calls"]["verify_batch"][w]
+                 for w in ("device", "host")}
+        doc.update(device_calls=calls["device"], host_calls=calls["host"],
+                   device_faults=after["device_faults"],
+                   reverified=after["reverified"],
+                   breaker_failures=after["status"]["total_failures"],
+                   view_changes=len(after["view_changes"]))
+        # Audit: every committed proof under the scheme's host rule.
+        ctl = net.controller
+        auditor = curve_provider(scheme, bytes(32) if scheme == "ed25519"
+                                 else 1, device="cpu",
+                                 device_threshold=10**9)
+        for hgt in range(1, CURVES_SIM_HEIGHTS + 2):
+            proof = Proof.decode(ctl.proofs[hgt])
+            voters = extract_voters(ctl.authority_list(),
+                                    proof.signature.address_bitmap)
+            vote = Vote(proof.height, proof.round, VoteType.PRECOMMIT,
+                        proof.block_hash)
+            if not auditor.verify_aggregated_signature(
+                    proof.signature.signature, sm3_hash(vote.encode()),
+                    voters):
+                fail(f"curves_sim {scheme}: the proof of height {hgt} "
+                     "fails the audit")
+        if ctl.violations:
+            fail(f"curves_sim {scheme}: safety violations")
+        out["schemes"][scheme] = doc
+        if (not calls["device"] or after["device_faults"]
+                or after["reverified"] or after["status"]["total_failures"]
+                or not all(doc["launches"].values())):
+            fail(f"curves_sim {scheme}: {doc}")
+    out["seconds"] = time.perf_counter() - t_all
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=7)
@@ -1833,11 +2346,17 @@ def main(argv=None) -> int:
               ("issue", ISSUE_PER_CLOCK_PER_SM))},
           "lane_ops": lane_ops(BLS12_381_FQ)})
     ptxas = ptxas_report(kernels)
-    emit({"phase": "ptxas", "kernels": ptxas})
+    curve_ptxas = {spec.name: ptxas_report(kernels, spec)
+                   for spec in kernels.all_specs()[1:]}
+    emit({"phase": "ptxas", "kernels": ptxas, "curve_kernels": curve_ptxas})
     for name in ("fq_mul", "g1_add", "g1_dbl") + PAIRING:
         name += "_kernel"
         if name not in ptxas or ptxas[name].get("spill_stores", 1):
             fail(f"{name}: spills or missing from the ptxas report")
+    for spec_name, report in curve_ptxas.items():
+        for name, info in report.items():
+            if info.get("spill_stores", 1) or info.get("spill_loads", 1):
+                fail(f"{name} ({spec_name}): spills in the ptxas report")
 
     t0 = time.perf_counter()
     s0, hashes, pks, sigs = make_fixtures(args.seed, LANES)
@@ -1849,7 +2368,7 @@ def main(argv=None) -> int:
     phase_counts, phase_sizes = drive_main_path(prov, s0, hashes, pks, sigs,
                                                 torch.cuda.synchronize)
     totals = kernels.counts()
-    every = [k.name for k in kernels.KERNELS]
+    every = [k.name for k in kernels.BLS_KERNELS]
     for name, used in (("pubkeys", ["fq_mul"]), ("single_hash", every),
                        ("bad_lanes", every), ("mixed", every)):
         idle = [k for k in used if phase_counts[name][k] == 0]
@@ -1863,6 +2382,14 @@ def main(argv=None) -> int:
     emit(pinned_upload(torch, prov, card, sigs[0], hashes[0], pks))
     emit(sim_fleet(torch, kernels, args.seed))
     emit(service_fleet(kernels))
+    # The Ed25519, secp256k1 and SM2 paths, then their fleets.
+    curve_sizes, curve_launches = {}, {}
+    for scheme in CURVE_KERNELS:
+        doc, sizes = curve_phase(torch, kernels, scheme, args.seed)
+        emit(doc)
+        curve_sizes.update(sizes)
+        curve_launches.update(doc["launches"])
+    emit(curves_sim(torch, kernels, args.seed))
 
     # Host-clock phases first: the profiled round runs last.
     emit(pairing_ab(torch, prov, s0, sigs[0], hashes[0], pks,
@@ -1874,7 +2401,7 @@ def main(argv=None) -> int:
     warm = phase_sizes["single_hash"]
     frequent = {k: sorted({max(v, key=lambda b: (v[b], b)),
                            max(v, key=lambda b: (b * v[b], b))})
-                for k, v in warm.items()}
+                for k, v in warm.items() if v}
     frequent["g1_add"] = sorted(warm["g1_add"])
     operands = kernel_operands(torch, args.seed)
     rows, sized = kernel_checks(torch, totals, operands, card, frequent)
@@ -1884,8 +2411,12 @@ def main(argv=None) -> int:
     pair_phase["launches_per_qc_phase"] = {
         k: {phase: qc[phase][k] for phase in qc} for k in PAIRING}
     emit(pair_phase)
+    curve_rows, curve_phase_doc = curve_kernel_checks(
+        torch, kernels, curve_sizes, curve_launches, card, args.seed,
+        curve_ptxas)
+    emit(curve_phase_doc)
     emit(trace_round(torch, prov, sigs[0], hashes[0], pks))
-    emit({"kernels": rows + pair_rows})
+    emit({"kernels": rows + pair_rows + curve_rows})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -299,8 +299,14 @@ class SimDeviceCrypto:
         self.prof = prof
 
     def degraded_status(self) -> dict:
-        """Breaker + fallback state for /statusz ("crypto" section)."""
-        return self.breaker.status()
+        """Breaker + fallback state for /statusz ("crypto" section), with
+        the base provider's own document (its `calls` by where they ran)
+        where it keeps one."""
+        doc = self.breaker.status()
+        base = getattr(self._base, "degraded_status", None)
+        if base is not None:
+            doc.update(base())
+        return doc
 
     @property
     def pub_key(self) -> bytes:

@@ -2,7 +2,8 @@
 --prewarm).
 
 The port's own copy of consensus_overlord_tpu/crypto/warm.py, driving
-CudaBlsCrypto.  On the card the first touch of a path costs what no
+CudaBlsCrypto (``warm_bls``) and the one-path providers of Ed25519,
+secp256k1 and SM2 (``warm_simple``).  On the card the first touch of a path costs what no
 measured height should carry: the nvcc build of the kernel libraries
 (once per checkout, kernels.load_all), the pairing programs' recording
 and upload (once per process, ops/kernels.py _program), and the CUDA
@@ -67,3 +68,15 @@ def warm_bls(provider, rungs: Sequence[int],
         agg = provider.aggregate_signatures(sigs, pks[:n])
         if not provider.verify_aggregated_signature(agg, hs[0], pks[:n]):
             raise RuntimeError(f"warm rung {n}: a valid QC did not verify")
+
+
+def warm_simple(provider, rungs: Sequence[int]) -> None:
+    """Run the one batched-verify path of the one-path providers
+    (Ed25519CudaCrypto, Secp256k1Crypto, Sm2Crypto) once at each rung."""
+    h = provider.hash(b"warm")
+    sig = provider.sign(h)
+    for n in rungs:
+        if not all(provider.verify_batch([sig] * n, [h] * n,
+                                         [provider.pub_key] * n)):
+            raise RuntimeError(f"warm rung {n}: a valid vote did not "
+                               "verify")

@@ -1,14 +1,16 @@
 // The lane-group Fq core, the one field core of the port's kernels
-// (fq_mul.cu; g1_point.cu g1_add_kernel and g1_dbl_kernel): G threads of
-// one warp compute one lane together (G is a build-time constant per
-// kernel: MUL_G, ADD_G, DBL_G), so a batch of B lanes runs B·G threads
+// (fq_mul.cu; g1_point.cu g1_add_kernel and g1_dbl_kernel; pairing.cu;
+// ed_point.cu; wp_point.cu): G threads of one warp compute one lane
+// together (G is a build-time constant per kernel: MUL_G, ADD_G, DBL_G,
+// TOWER_G, ED_G, WP_G), so a batch of B lanes runs B·G threads
 // and each thread's dependent chain is about G times shorter than with
 // one thread per lane.
 //
-// Layout.  Thread t of a group owns L = ceil(40 / G) slots of the lane:
+// Layout.  Thread t of a group owns L = ceil((n + 1) / G) slots of the
+// lane (n = FQ_N limbs: 39 for BLS12-381, 26 for the 256-bit fields):
 // element limbs and the low part of a wide accumulator at positions
 // tL..tL+L−1 of W = G·L, and the high part at W+tL..W+tL+L−1.  Slots
-// past limb 38 hold 0.  Every register array is indexed by compile-time
+// past limb n − 1 hold 0.  Every register array is indexed by compile-time
 // slots only, so nothing lives in local memory.
 //
 // Multiply.  The operands' slices go to a per-lane scratch in shared
@@ -17,8 +19,7 @@
 // plan; it walks the rows in an order rotated by tL, which makes every
 // b position it reads a compile-time constant and puts each product in
 // its low or high column by a rule fixed per block of L rows
-// (fq_conv_rotated): W·L multiply-adds a thread, all terms of the 1,521
-// once.  (Summing contiguous columns instead and shuffling the sums to
+// (fq_conv_rotated): W·L multiply-adds a thread, all n² terms once.  (Summing contiguous columns instead and shuffling the sums to
 // their owners was 1.4–1.6x slower at every G on the H100: PERF.md.)
 //
 // Reduction.  The plan's steps (fq_plans.h) run as templates: a carry
@@ -68,7 +69,7 @@ struct Fe {
 };
 
 // The fold rows in each group size's layout, [r][c][t] int4 (slot
-// s = 4c + k of thread t is position tL + s; 0 past limb 38), built from
+// s = 4c + k of thread t is position tL + s; 0 past limb n − 1), built from
 // g_fq by fq_set_tables and read through the read-only cache.
 __device__ int4 g_fold4_8[FqGroup<8>::FOLD_INT4];
 __device__ int4 g_fold4_16[FqGroup<16>::FOLD_INT4];
@@ -189,9 +190,9 @@ struct FqGroupAcc {
     }
   }
 
-  // lo += Σ_r h_r · fold[r] for the A positions h_r = v[39 + r], which
-  // are then consumed.  Fold rows are 0 past limb 38, so h positions in
-  // the low part (G = 16) keep their value until they are cleared.
+  // lo += Σ_r h_r · fold[r] for the A positions h_r = v[n + r], which
+  // are then consumed.  Fold rows are 0 past limb n − 1, so h positions in
+  // the low part keep their value until they are cleared.
   template <int A>
   __device__ __forceinline__ void fold() {
 #pragma unroll
@@ -236,12 +237,12 @@ struct FqGroupAcc {
 // The interleaved split, rows rotated: thread t walks the rows
 // i = (tL + k) mod W for k = 0..W−1.  Column tL + s then takes
 // b[(s − k) mod W] at step k, the same compile-time position for every
-// thread of the group, from a cyclic copy of b (limbs 39..W−1 are 0, so
+// thread of the group, from a cyclic copy of b (limbs n..W−1 are 0, so
 // b[W + c − i] is the high column's operand).  A product belongs to the
 // low column when i <= tL + s and to the high one otherwise: by slot in
 // the first block of L steps, and for the block k in [qL, qL + L) to the
 // high part while q < G − t, to the low part from there on.  W·L
-// multiply-adds a thread, no zero terms but those of rows 39..W−1.
+// multiply-adds a thread, no zero terms but those of rows n..W−1.
 template <int G, int N>
 __device__ __forceinline__ void fq_conv_rotated(
     const FqLane<G>& ln, const Fe<G> (&a)[N], const Fe<G> (&b)[N],
@@ -374,6 +375,15 @@ __device__ __forceinline__ Fe<G> fq_sub(const FqLane<G>& ln, const Fe<G>& a,
   for (int s = 0; s < FqGroup<G>::L; ++s)
     v.v[s] = a.v[s] + (ln.pad[s] - b.v[s]);
   return fq_reduce_lo<FQ_PLAN_SUB>(ln, v);
+}
+
+// −a as (pad − a), the plain FieldSpec.neg with its NEG plan.
+template <int G>
+__device__ __forceinline__ Fe<G> fq_neg(const FqLane<G>& ln, const Fe<G>& a) {
+  Fe<G> v;
+#pragma unroll
+  for (int s = 0; s < FqGroup<G>::L; ++s) v.v[s] = ln.pad[s] - a.v[s];
+  return fq_reduce_lo<FQ_PLAN_NEG>(ln, v);
 }
 
 // a · k for a small constant k whose bound plan is P.

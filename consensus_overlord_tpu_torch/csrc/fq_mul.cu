@@ -1,10 +1,16 @@
-// Batched loose-limb BLS12-381 Fq multiply for Hopper (sm_90a).
+// Batched loose-limb Fq multiply for Hopper (sm_90a), built once per
+// field: BLS12-381's Fq (39 limbs), and the 26-limb fields of Ed25519,
+// secp256k1 and SM2 (the limb count and plans come from the field's
+// generated header, fq_plans.h).
 //
 // Replaces the TPU kernel consensus_overlord_tpu/ops/pallas_field.py
-// `_mul_kernel` (reached through mul_transposed / PallasField.mul): a
-// 39×39 schoolbook convolution to 77 positions, then FieldSpec._plan's
-// fold/carry steps against the fold-row table.  Loose in, loose out,
-// bit-identical to FieldSpec.mul_plain (and to the JAX FieldSpec.mul).
+// `_mul_kernel` (reached through mul_transposed / PallasField.mul), which
+// takes any FieldSpec: an n×n schoolbook convolution to 2n − 1
+// positions, then FieldSpec._plan's fold/carry steps against the
+// fold-row table.  Loose in, loose out, bit-identical to
+// FieldSpec.mul_plain (and to the JAX FieldSpec.mul).  The figures below
+// are BLS12-381's; at 26 limbs a lane moves 312 bytes and does about
+// 1,430 multiply-adds.
 //
 // What bounds it on the H100: per lane it reads 2·39 and writes 39 int32
 // (468 bytes) and issues 3,198 integer multiply-adds (1,521 convolution,

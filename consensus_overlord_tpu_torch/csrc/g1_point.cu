@@ -1,5 +1,8 @@
-// Fused BLS12-381 G1 group operations for Hopper (sm_90a): the complete
-// projective addition and the dedicated a=0 doubling, each one kernel.
+// Fused group operations of an a = 0 short-Weierstrass curve for Hopper
+// (sm_90a): the complete projective addition and the dedicated a=0
+// doubling, each one kernel.  Built for BLS12-381's G1 (b = 4) and for
+// secp256k1 (b = 7): the field's generated header (fq_plans.h) gives
+// 3b as FQ_GEN_B3 and its reduction plan as FQ_GEN_B3_PLAN.
 //
 // Replaces the TPU kernel consensus_overlord_tpu/ops/pallas_point.py
 // `_point_kernel` in both its forms: op="add" (body _g1_add_body,
@@ -8,7 +11,8 @@
 // line of ops/curve.py CurveOps.add / CurveOps.dbl op for op, with every
 // field op ending in the same planned reduction (fq_plans.h), so the
 // outputs are bit-identical to the generic formulas over the plain field
-// (bls12381_groups.G1.add_plain / dbl_plain).
+// (bls12381_groups.G1.add_plain / dbl_plain; for secp256k1,
+// weierstrass.SECP.add_plain / dbl_plain).
 //
 // What bounds them on the H100: an add reads six and writes three (B, 39)
 // int32 coordinates (1,404 bytes a lane) and does 12 field multiplies
@@ -31,7 +35,9 @@
 // multiply of six beat two of three (PERF.md): at B = 8192 the add takes
 // 0.073 ms against a 0.0196 ms bound, the doubling 0.045 against 0.0128
 // (NVIDIA H100 80GB HBM3, 700 W).  ptxas -v, printed by chip_smoke.py:
-// g1_add_kernel 128 registers, g1_dbl_kernel 117, no spills.
+// g1_add_kernel 128 registers, g1_dbl_kernel 117, no spills.  Over
+// secp256k1's 26 limbs (L = 2 at G = 16) the same bodies do about 45%
+// of that work.
 
 #include "fq_group.cuh"
 
@@ -39,8 +45,11 @@
 #define ADD_G 16  // threads per lane
 #define DBL_THREADS 64
 #define DBL_G 16  // threads per lane
-// 3·b for G1's b = 4.  The SMALL12 plan's bounds hold only for this value.
-#define G1_B3 12
+// 3·b of the curve, and the plan whose bounds hold for a product by it.
+#ifndef FQ_GEN_B3
+#error "g1_point.cu is built only for a field whose header gives FQ_GEN_B3"
+#endif
+#define G1_B3 FQ_GEN_B3
 
 __global__ void __launch_bounds__(ADD_THREADS)
     g1_add_kernel(int* ox, int* oy, int* oz, const int* px, const int* py,
@@ -76,8 +85,8 @@ __global__ void __launch_bounds__(ADD_THREADS)
     t5 = fq_sub(ln, r[5], fq_add(ln, t0, t2));  // x1z2 + x2z1
   }
   const F three_t0 = fq_small<FQ_PLAN_SMALL3>(ln, t0, 3);
-  const F b3_t2 = fq_small<FQ_PLAN_SMALL12>(ln, t2, G1_B3);
-  const F y3 = fq_small<FQ_PLAN_SMALL12>(ln, t5, G1_B3);
+  const F b3_t2 = fq_small<FQ_GEN_B3_PLAN>(ln, t2, G1_B3);
+  const F y3 = fq_small<FQ_GEN_B3_PLAN>(ln, t5, G1_B3);
   const F z3 = fq_add(ln, t1, b3_t2);
   t1 = fq_sub(ln, t1, b3_t2);
   {
@@ -113,7 +122,7 @@ __global__ void __launch_bounds__(DBL_THREADS)
     t0 = r[0], t1 = r[1], zz = r[2], xy = r[3];
   }
   F z3 = fq_small<FQ_PLAN_SMALL8>(ln, t0, 8);      // 8Y²
-  F t2 = fq_small<FQ_PLAN_SMALL12>(ln, zz, G1_B3);  // 3bZ²
+  F t2 = fq_small<FQ_GEN_B3_PLAN>(ln, zz, G1_B3);  // 3bZ²
   F x3;
   {
     F a[2] = {t2, t1}, b[2] = {z3, z3}, r[2];

@@ -107,15 +107,6 @@ struct TowerIO {
   int in_fq[4];
 };
 
-// −x as (pad − x), the plain FieldSpec.neg with its NEG plan.
-template <int G>
-__device__ __forceinline__ Fe<G> fq_neg(const FqLane<G>& ln, const Fe<G>& a) {
-  Fe<G> v;
-#pragma unroll
-  for (int s = 0; s < FqGroup<G>::L; ++s) v.v[s] = ln.pad[s] - a.v[s];
-  return fq_reduce_lo<FQ_PLAN_NEG>(ln, v);
-}
-
 __device__ __forceinline__ void reg_load(TFe& e, const int* regs, int r,
                                          int t) {
   const int* p = regs + r * TGp::W + t * TGp::L;

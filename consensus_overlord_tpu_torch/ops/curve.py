@@ -12,8 +12,9 @@ module gathers it (the same values).
 
 from __future__ import annotations
 
-from typing import Callable, List, NamedTuple
+from typing import Callable, List, NamedTuple, Sequence
 
+import numpy as np
 import torch
 
 from .field import Tensor
@@ -39,6 +40,16 @@ def _signed_base16_digits(k: int) -> List[int]:
         digs.append(d)
     digs.reverse()
     return digs
+
+
+def int_to_bits_msb_np(values: Sequence[int], nbits: int) -> np.ndarray:
+    """Ints → a (len, nbits) MSB-first int32 numpy bit array for the
+    scalar ladders, by np.unpackbits over the big-endian bytes."""
+    nbytes = -(-nbits // 8)
+    packed = b"".join(v.to_bytes(nbytes, "big") for v in values)
+    arr = np.frombuffer(packed, np.uint8).reshape(len(values), nbytes)
+    return np.unpackbits(arr, axis=1)[:, nbytes * 8 - nbits:].astype(
+        np.int32)
 
 
 def _stack(points: List[Point]) -> Point:

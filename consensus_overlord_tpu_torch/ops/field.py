@@ -5,7 +5,8 @@ limb layout and the same statically planned reductions, so every loose
 output is bit-identical to the JAX package's:
 
 * An element of F_p is ``n`` limbs of ``b`` bits on the trailing axis of
-  an int32 tensor (n = 39, b = 10 for BLS12-381).  A full schoolbook
+  an int32 tensor (n = 39, b = 10 for BLS12-381; n = 26 for the 256-bit
+  primes of Ed25519, secp256k1 and SM2).  A full schoolbook
   product convolution stays below 2**31, so everything is exact int32.
 * Limbs are **loose**: any limb ≤ ``loose_max`` (2**(b+2) − 1) is legal.
   Each op ends in a reduction pipeline (carry passes + fold-row
@@ -16,8 +17,11 @@ output is bit-identical to the JAX package's:
   conditional-subtraction ladder of 2**k·p multiples.
 
 ``mul`` is the first CUDA kernel's wrapper: for CUDA tensors it launches
-csrc/fq_mul.cu through ops/kernels.py; for CPU tensors it runs
-``mul_plain``, the staircase form of the same convolution and reduction.
+csrc/fq_mul.cu, built for this spec, through ops/kernels.py; for CPU
+tensors it runs ``mul_plain``, the staircase form of the same
+convolution and reduction.  ``inv`` of CUDA tensors runs its product
+chain in one launch of csrc/pairing.cu (``kernels.fq_inv``) where that
+library is built for the spec.
 Every other op is plain PyTorch on whatever device the tensors are on.
 """
 
@@ -298,7 +302,17 @@ class FieldSpec:
         return acc
 
     def inv(self, x: Tensor) -> Tensor:
-        """Modular inverse by Fermat (x**(p−2)); inv(0) = 0."""
+        """Modular inverse by Fermat (x**(p−2)); inv(0) = 0.  CUDA tensors
+        of a field the pairing kernels are built for run the whole chain
+        in one launch (kernels.fq_inv, whose program is recorded from
+        inv_chain); every other tensor runs inv_chain."""
+        if x.device.type == "cuda" and kernels.has_fq_inv(self):
+            return kernels.fq_inv(self, x)
+        return self.inv_chain(x)
+
+    def inv_chain(self, x: Tensor) -> Tensor:
+        """x**(p−2) product by product (pow_static over this field's
+        mul): the JAX FieldSpec.inv's sequence."""
         return self.pow_static(x, self.p - 2)
 
     def sqrt_candidate(self, x: Tensor) -> Tensor:
@@ -441,11 +455,23 @@ class PlainField:
         return self._spec.mul_plain(x, x)
 
     pow_static = FieldSpec.pow_static
-    inv = FieldSpec.inv
+    inv = inv_chain = FieldSpec.inv_chain
 
 
 BLS12_381_P = int(
     "1a0111ea397fe69a4b1ba7b6434bacd764774b84f38512bf6730d2a0f6b0f624"
     "1eabfffeb153ffffb9feffffffffaaab", 16)
 
+# The moduli of the other signature schemes (consensus_overlord_tpu/ops/
+# field.py), each 26 limbs of 10 bits: Ed25519's, secp256k1's and SM2's.
+ED25519_P = 2**255 - 19
+SECP256K1_P = 2**256 - 2**32 - 977
+SM2_P = int("fffffffeffffffffffffffffffffffffffffffff"
+            "00000000ffffffffffffffff", 16)
+
 BLS12_381_FQ = FieldSpec(BLS12_381_P, limb_bits=10, name="bls12381_fq")
+# Named as the JAX package names them (ops/edwards.py FE, ops/
+# weierstrass.py FQ_SECP and FQ_SM2): the kernels' builds go by name.
+ED25519_FQ = FieldSpec(ED25519_P, limb_bits=10, name="F_ed25519")
+SECP256K1_FQ = FieldSpec(SECP256K1_P, limb_bits=10, name="secp256k1_fq")
+SM2_FQ = FieldSpec(SM2_P, limb_bits=10, name="sm2_fq")

@@ -3,23 +3,27 @@
 Each source under consensus_overlord_tpu_torch/csrc/ is one shared
 library with a plain C interface, compiled by ``nvcc`` for ``sm_90a``
 into consensus_overlord_tpu_torch/_build/ at first use and loaded with
-ctypes.  The field's reduction plans reach the kernels at build time: a
-header generated from ``FieldSpec._plan`` (``plan_header``) is written
-into _build/ and included by the sources, so every plan step unrolls
-over its live positions only.  The library's file name carries a hash
-of its sources, that header and the flags, so an edited source or a
-changed plan is never served by a stale build.  Nothing falls back: a
-missing ``nvcc``, a failed build or a refused launch raises.
+ctypes, once for each field it serves (``SPEC_LIBS``: BLS12-381's Fq,
+and the 26-limb fields of Ed25519, secp256k1 and SM2).  The field's
+limb count, table size and reduction plans reach the kernels at build
+time: a header generated from ``FieldSpec._plan`` (``plan_header``) is
+written into the field's own directory, _build/<field name>/, and
+included by the sources, so every plan step unrolls over its live
+positions only.  The library's file name carries a hash of its sources,
+that header and the flags, so an edited source or a changed plan is
+never served by a stale build.  Nothing falls back: a missing ``nvcc``,
+a failed build or a refused launch raises.
 
-Each kernel keeps a launch counter (``Kernel.launches``) that its wrapper
-increments once per launch and nowhere else, so a run can show that the
-main path went through the kernel, and a histogram of the lanes per
-launch (``Kernel.sizes``); both are updated under a lock, since a fleet
-of providers launches from many threads.  The field tables are uploaded
+Each kernel, built for one field, keeps a launch counter
+(``Kernel.launches``) that its wrapper increments once per launch and
+nowhere else, so a run can show that the main path went through the
+kernel, and a histogram of the lanes per launch (``Kernel.sizes``);
+both are updated under a lock, since a fleet of providers launches from
+many threads.  The field tables are uploaded
 once per device per process, under the module's lock.
 
 The wrappers take the JAX package's limb layouts — (B, n) for the field
-and G1 kernels, the tower's (B, 2, n), (B, 2, 3, 2, n) for the pairing
+and point kernels, the tower's (B, 2, n), (B, 2, 3, 2, n) for the pairing
 kernels — int32, contiguous, on one CUDA device; they allocate outputs
 with ``torch.empty`` and launch on ``torch.cuda.current_stream()``.
 """
@@ -48,31 +52,56 @@ PLAN_HEADER = "fq_plans.h"
 # -Xptxas -v: ptxas reports each kernel's registers and spills; the
 # report is kept beside the library (build_log).
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-              "-I", BUILD_DIR]
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-# Table layout shared with csrc/fq_field.cuh (the FQ_TAB_* macros).
-FQ_N = 39
+#: Limb width the kernels take (FQ_BITS in csrc/fq_field.cuh), and the
+#: most limbs: the lane groups' registers are sized and measured up to
+#: BLS12-381's 39.
 FQ_BITS = 10
-FQ_MAXW = 80
-FQ_FOLD_ROWS = 47
-#: Reduction plans in the order of the generated FQ_PLAN_* enum (their
-#: input bounds: plan_bounds).
+FQ_MAX_N = 39
+#: Reduction plans every field's header carries, in the order of the
+#: generated FQ_PLAN_* enum (their input bounds: plan_bounds); a field
+#: that g1_point.cu is built for adds its 3b plan (plan_names).
 PLAN_NAMES = ("mul", "add2", "sub", "small2", "small3", "small8", "small12",
               "neg")
+#: 3·b of the a = 0 curve csrc/g1_point.cu is built for, by field name:
+#: BLS12-381's G1 (b = 4) and secp256k1 (b = 7).
+G1_B3 = {"bls12381_fq": 12, "secp256k1_fq": 21}
+#: The libraries built for each field, by field name.
+SPEC_LIBS = {
+    "bls12381_fq": ("fq_mul", "g1_point", "pairing"),
+    "F_ed25519": ("fq_mul", "ed_point"),
+    "secp256k1_fq": ("fq_mul", "g1_point"),
+    "sm2_fq": ("fq_mul", "wp_point"),
+}
+
+
+def fold_rows(spec) -> int:
+    """Fold rows in the kernels' table (FQ_FOLD_ROWS in fq_field.cuh):
+    every row FieldSpec keeps, n + 8."""
+    return spec.n + 8
+
+
+def max_width(spec) -> int:
+    """The widest accumulator a plan may reach (FQ_MAXW in
+    fq_field.cuh): the product's 2n − 1 positions and three carries."""
+    return 2 * spec.n + 2
 
 #: Threads per lane ("lane group") of each kernel, fixed at build time
 #: (MUL_G in csrc/fq_mul.cu, ADD_G and DBL_G in csrc/g1_point.cu,
-#: TOWER_G in csrc/pairing.cu).
+#: TOWER_G in csrc/pairing.cu, ED_G in csrc/ed_point.cu, WP_G in
+#: csrc/wp_point.cu).
 FQ_MUL_GROUP = 8
 G1_ADD_GROUP = 16
 G1_DBL_GROUP = 16
 TOWER_GROUP = 16
+ED_ADD_GROUP = 8
+WP_ADD_GROUP = 8
 #: Threads of a pairing kernel's block (TOWER_THREADS in csrc/pairing.cu):
 #: its programs are built for TOWER_THREADS // 32 warps.
 TOWER_THREADS = 512
 GROUP_SIZES = tuple(sorted({FQ_MUL_GROUP, G1_ADD_GROUP, G1_DBL_GROUP,
-                            TOWER_GROUP}))
+                            TOWER_GROUP, ED_ADD_GROUP, WP_ADD_GROUP}))
 
 
 class Kernel:
@@ -80,8 +109,10 @@ class Kernel:
     replaces, how many times its wrapper launched it, and how many lanes
     each launch carried."""
 
-    def __init__(self, name: str, source: str, replaces: str):
+    def __init__(self, name: str, source: str, replaces: str,
+                 spec: str = "bls12381_fq"):
         self.name = name
+        self.spec = spec  # the name of the field it is built for
         self.route = "cuda"
         self.source = source
         self.replaces = replaces
@@ -116,8 +147,49 @@ FQ12_MUL = Kernel(
 FINAL_EXP = Kernel(
     "final_exp", "consensus_overlord_tpu_torch/csrc/pairing.cu",
     "consensus_overlord_tpu/ops/pairing.py:211")
-KERNELS = (FQ_MUL, G1_ADD, G1_DBL, MILLER_PRODUCT, FQ12_MUL, FINAL_EXP)
 PAIRING_KERNELS = (MILLER_PRODUCT, FQ12_MUL, FINAL_EXP)
+# final_exp_kernel running the fq_inv12 program: FieldSpec.inv on the
+# card, which the JAX package runs inside its XLA jits (to_affine, the QC
+# pubkey sum), 489 products on the field kernel.
+FQ_INV = Kernel(
+    "fq_inv", "consensus_overlord_tpu_torch/csrc/pairing.cu",
+    "consensus_overlord_tpu/ops/field.py:340")
+BLS_KERNELS = (FQ_MUL, G1_ADD, G1_DBL) + PAIRING_KERNELS + (FQ_INV,)
+# The kernels of the Ed25519, secp256k1 and SM2 paths.  fq_mul serves
+# each field's decompression, x tests and predicates; the secp256k1 add
+# and doubling are g1_point.cu's bodies built with 3b = 21; ed_add and
+# wp_add_general replace the group laws inside the JAX package's XLA
+# jits (crypto/ed25519_tpu.py _ed_msm_is_identity, crypto/ecdsa_tpu.py
+# _verify_kernel), which have no Pallas twin.
+_FIELD = "consensus_overlord_tpu/ops/pallas_field.py:41"
+FQ_MUL_ED25519 = Kernel(
+    "fq_mul_ed25519", "consensus_overlord_tpu_torch/csrc/fq_mul.cu", _FIELD,
+    "F_ed25519")
+FQ_MUL_SECP256K1 = Kernel(
+    "fq_mul_secp256k1", "consensus_overlord_tpu_torch/csrc/fq_mul.cu",
+    _FIELD, "secp256k1_fq")
+FQ_MUL_SM2 = Kernel(
+    "fq_mul_sm2", "consensus_overlord_tpu_torch/csrc/fq_mul.cu", _FIELD,
+    "sm2_fq")
+ED_ADD = Kernel(
+    "ed_add", "consensus_overlord_tpu_torch/csrc/ed_point.cu",
+    "consensus_overlord_tpu/crypto/ed25519_tpu.py:60", "F_ed25519")
+SECP_ADD = Kernel(
+    "secp_add", "consensus_overlord_tpu_torch/csrc/g1_point.cu",
+    "consensus_overlord_tpu/ops/pallas_point.py:150", "secp256k1_fq")
+SECP_DBL = Kernel(
+    "secp_dbl", "consensus_overlord_tpu_torch/csrc/g1_point.cu",
+    "consensus_overlord_tpu/ops/pallas_point.py:150", "secp256k1_fq")
+WP_ADD_GENERAL = Kernel(
+    "wp_add_general", "consensus_overlord_tpu_torch/csrc/wp_point.cu",
+    "consensus_overlord_tpu/crypto/ecdsa_tpu.py:224", "sm2_fq")
+CURVE_KERNELS = (FQ_MUL_ED25519, ED_ADD, FQ_MUL_SECP256K1, SECP_ADD,
+                 SECP_DBL, FQ_MUL_SM2, WP_ADD_GENERAL)
+KERNELS = BLS_KERNELS + CURVE_KERNELS
+_FQ_MUL_OF = {k.spec: k for k in (FQ_MUL, FQ_MUL_ED25519, FQ_MUL_SECP256K1,
+                                  FQ_MUL_SM2)}
+_G1_OF = {"bls12381_fq": (G1_ADD, G1_DBL),
+          "secp256k1_fq": (SECP_ADD, SECP_DBL)}
 
 
 def reset_counts() -> None:
@@ -149,7 +221,8 @@ def size_buckets(by_size: Dict[int, int]) -> Dict[int, int]:
 # -- reduction plans fixed at build time --------------------------------------
 
 def plan_bounds(spec, name: str) -> List[int]:
-    """Per-position input bounds of the named reduction plan."""
+    """Per-position input bounds of the named reduction plan
+    ("small<k>": a product by the constant k)."""
     n, L = spec.n, spec.loose_max
     if name == "mul":
         return spec._conv_bounds()
@@ -157,44 +230,57 @@ def plan_bounds(spec, name: str) -> List[int]:
         return [L + int(spec._pad_np.max())] * n
     if name == "neg":
         return [int(spec._pad_np.max())] * n
-    k = {"add2": 2, "small2": 2, "small3": 3, "small8": 8, "small12": 12}
-    return [k[name] * L] * n
+    k = 2 if name == "add2" else int(name[len("small"):])
+    return [k * L] * n
+
+
+def plan_names(spec) -> Tuple[str, ...]:
+    """The plans of the spec's header: PLAN_NAMES, and the 3b plan of the
+    a = 0 curve g1_point.cu is built for over it (G1_B3)."""
+    b3 = G1_B3.get(spec.name)
+    if b3 is None or f"small{b3}" in PLAN_NAMES:
+        return PLAN_NAMES
+    return PLAN_NAMES + (f"small{b3}",)
 
 
 def plan_steps(spec, name: str) -> List[Tuple[str, int, int, int]]:
     """The named plan as (kind, arg, width before, width after) steps,
-    checked against the kernels' fixed widths."""
+    checked against the kernels' widths for the spec."""
+    n = spec.n
     bounds = plan_bounds(spec, name)
     width = len(bounds)
     out = []
     for kind, arg in spec._plan(list(bounds)):
         w_in = width
         if kind == "fold":
-            if arg > FQ_FOLD_ROWS or w_in != FQ_N + arg:
+            if arg > fold_rows(spec) or w_in != n + arg:
                 raise ValueError(f"plan {name} folds {arg} rows")
-            width = FQ_N
+            width = n
         else:
             width += arg
-        if width > FQ_MAXW:
+        if width > max_width(spec):
             raise ValueError(f"plan {name} reaches width {width}")
         out.append((kind, arg, w_in, width))
-    if width != FQ_N:
+    if width != n:
         raise ValueError(f"plan {name} ends at width {width}")
     return out
 
 
 def _check_spec(spec) -> None:
-    if spec.n != FQ_N or spec.b != FQ_BITS:
+    if spec.b != FQ_BITS or not 2 <= spec.n <= FQ_MAX_N:
         raise ValueError(f"{spec.name}: the CUDA field kernels are built "
-                         f"for {FQ_N} limbs of {FQ_BITS} bits")
+                         f"for at most {FQ_MAX_N} limbs of {FQ_BITS} bits")
 
 
 def plan_header(spec) -> str:
-    """The C header the kernels include: every plan of PLAN_NAMES as an
-    X-macro of its steps, FQ_STEP(kind, arg, width before, width after),
-    and the most fold rows any step uses.  Deterministic in the spec."""
+    """The C header the kernels include: the limb count, every plan of
+    plan_names(spec) as an X-macro of its steps, FQ_STEP(kind, arg, width
+    before, width after), the most fold rows any step uses, and the 3b
+    of the spec's a = 0 curve where g1_point.cu is built for it.
+    Deterministic in the spec."""
     _check_spec(spec)
-    plans = {name: plan_steps(spec, name) for name in PLAN_NAMES}
+    names = plan_names(spec)
+    plans = {name: plan_steps(spec, name) for name in names}
     rows = max(a for steps in plans.values() for k, a, _, _ in steps
                if k == "fold")
     lines = [
@@ -207,34 +293,39 @@ def plan_header(spec) -> str:
         f"#define FQ_GEN_FOLD_ROWS {rows}",
         "enum {",
     ]
-    lines += [f"  FQ_PLAN_{name.upper()}," for name in PLAN_NAMES]
+    lines += [f"  FQ_PLAN_{name.upper()}," for name in names]
     lines += ["  FQ_NUM_PLANS", "};"]
-    for name in PLAN_NAMES:
+    b3 = G1_B3.get(spec.name)
+    if b3 is not None:
+        lines += [f"#define FQ_GEN_B3 {b3}",
+                  f"#define FQ_GEN_B3_PLAN FQ_PLAN_SMALL{b3}"]
+    for name in names:
         lines.append(f"#define FQ_PLAN_{name.upper()}_STEPS(FQ_STEP) \\")
         body = [f"  FQ_STEP({k.upper()}, {a}, {wi}, {wo})"
                 for k, a, wi, wo in plans[name]]
         lines += [ln + " \\" for ln in body[:-1]] + [body[-1]]
     lines.append("#define FQ_PLANS(X) " + " ".join(
-        f"X({name.upper()})" for name in PLAN_NAMES))
+        f"X({name.upper()})" for name in names))
     return "\n".join(lines) + "\n"
 
 
-def group_layout(g: int) -> Tuple[int, int]:
-    """(L, W) of a lane group of g threads: each thread owns L slots of
-    the lane's element (positions tL..tL+L−1 of the W = gL low positions)
-    and L of the high part (W+tL..W+tL+L−1).  Mirrors fq_group.cuh."""
+def group_layout(g: int, n: int) -> Tuple[int, int]:
+    """(L, W) of a lane group of g threads for n-limb elements: each
+    thread owns L slots of the lane's element (positions tL..tL+L−1 of
+    the W = gL low positions) and L of the high part (W+tL..W+tL+L−1).
+    Mirrors fq_group.cuh."""
     if g not in GROUP_SIZES:
         raise ValueError(f"lane groups of {g} threads are not built")
-    L = -(-(FQ_N + 1) // g)
+    L = -(-(n + 1) // g)
     return L, g * L
 
 
-def group_terms(g: int) -> List[List[Tuple[int, int, int]]]:
+def group_terms(g: int, n: int) -> List[List[Tuple[int, int, int]]]:
     """The product terms a_i·b_j each thread of a g-thread lane group adds
     and the column it adds each to, (i, j, column), in the order and by
     the rule of csrc/fq_group.cuh fq_conv_rotated; zero terms left
     out."""
-    L, W = group_layout(g)
+    L, W = group_layout(g, n)
     out = []
     for t in range(g):
         terms = []
@@ -244,7 +335,7 @@ def group_terms(g: int) -> List[List[Tuple[int, int, int]]]:
                 i, j = (t * L + k) % W, (s - k) % W
                 q, u = divmod(k, L)
                 low = u <= s if q == 0 else q >= g - t
-                if i < FQ_N and j < FQ_N:
+                if i < n and j < n:
                     terms.append((i, j, c if low else W + c))
         out.append(terms)
     return out
@@ -268,6 +359,12 @@ _LIBS = {
         "final_exp_launch": [_VP] * 4 + [_I, _I, _I, _VP],
         "tower_probe_launch": [_VP] * 3 + [_I, _I, _I, _I, _VP],
     }),
+    "ed_point": ("ed_point.cu", {
+        "ed_add_launch": [_VP] * 13 + [_I, _I, _VP],
+    }),
+    "wp_point": ("wp_point.cu", {
+        "wp_add_general_launch": [_VP] * 10 + [_I, _I, _VP],
+    }),
 }
 _HEADERS = ("fq_field.cuh", "fq_group.cuh")
 
@@ -281,6 +378,25 @@ def _default_spec():
     return BLS12_381_FQ
 
 
+def all_specs() -> Tuple:
+    """Every field the kernels are built for, BLS12-381's first."""
+    from .field import BLS12_381_FQ, ED25519_FQ, SECP256K1_FQ, SM2_FQ
+    return (BLS12_381_FQ, ED25519_FQ, SECP256K1_FQ, SM2_FQ)
+
+
+def spec_libs(spec) -> Tuple[str, ...]:
+    """The libraries built for the spec (fq_mul alone for a field no
+    curve kernel is built for)."""
+    return SPEC_LIBS.get(spec.name, ("fq_mul",))
+
+
+def header_dir(spec) -> str:
+    """The spec's own directory under _build/, which holds its plan
+    header: each spec's sources are compiled with -I there, so two
+    specs never share, or race on, one header file."""
+    return os.path.join(BUILD_DIR, spec.name)
+
+
 def _nvcc() -> str:
     path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
     if not os.path.exists(path):
@@ -291,7 +407,8 @@ def _nvcc() -> str:
 
 def _so_path(lib: str, header: str) -> str:
     """The library's build path, named by the hash of the nvcc flags, its
-    sources and the generated plan header's text."""
+    sources and the generated plan header's text (which names the
+    spec)."""
     src, _ = _LIBS[lib]
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for name in (src,) + _HEADERS:
@@ -301,28 +418,28 @@ def _so_path(lib: str, header: str) -> str:
     return os.path.join(BUILD_DIR, f"{lib}_{h.hexdigest()[:16]}.so")
 
 
-def _write_header(header: str) -> None:
-    path = os.path.join(BUILD_DIR, PLAN_HEADER)
+def _write_header(spec, header: str) -> None:
+    path = os.path.join(header_dir(spec), PLAN_HEADER)
     if os.path.exists(path):
         with open(path) as f:
             if f.read() == header:
                 return
-    os.makedirs(BUILD_DIR, exist_ok=True)
+    os.makedirs(header_dir(spec), exist_ok=True)
     tmp = f"{path}.{os.getpid()}.tmp"
     with open(tmp, "w") as f:
         f.write(header)
     os.replace(tmp, path)
 
 
-def _start_build(lib: str, header: str):
+def _start_build(lib: str, spec, header: str):
     so = _so_path(lib, header)
     built = os.path.exists(so)
     compile_cache.record(hit=built)
     if built:
         return None
-    _write_header(header)
+    _write_header(spec, header)
     tmp = f"{so}.{os.getpid()}.tmp"
-    cmd = [_nvcc()] + NVCC_FLAGS + ["-o", tmp,
+    cmd = [_nvcc()] + NVCC_FLAGS + ["-I", header_dir(spec), "-o", tmp,
                                     os.path.join(CSRC, _LIBS[lib][0])]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT)
@@ -341,27 +458,34 @@ def _finish_build(lib: str, job) -> None:
     os.replace(tmp, so)  # atomic: no process loads a half-written object
 
 
-def build_all(spec=None) -> float:
-    """Compile every library that is not built yet, one nvcc per source,
-    all started together.  Returns the wall seconds spent building."""
-    header = plan_header(spec or _default_spec())
+def build_all(specs=None) -> float:
+    """Compile every library of every spec (default: all_specs()) that is
+    not built yet, one nvcc per (source, spec), all started together.
+    Returns the wall seconds spent building."""
+    specs = all_specs() if specs is None else specs
     t0 = time.perf_counter()
     with _lock:
-        jobs = {lib: _start_build(lib, header) for lib in _LIBS}
-        for lib, job in jobs.items():
+        jobs = []
+        for spec in specs:
+            header = plan_header(spec)
+            jobs += [(lib, _start_build(lib, spec, header))
+                     for lib in spec_libs(spec)]
+        for lib, job in jobs:
             if job is not None:
                 _finish_build(lib, job)
     return time.perf_counter() - t0
 
 
 def load_all(device: torch.device, spec=None) -> None:
-    """Build every library that is not built yet (in parallel), load each
-    and upload the field tables to `device`: what a provider on a CUDA
-    device does first, so that a failed build or load raises there."""
+    """Build the spec's libraries that are not built yet (in parallel),
+    load each and upload the spec's field tables to `device`: what a
+    provider on a CUDA device does first, so that a failed build or load
+    raises there."""
     spec = spec or _default_spec()
-    if any((lib, id(spec)) not in _loaded for lib in _LIBS):
-        build_all(spec)
-    for lib in _LIBS:
+    libs = spec_libs(spec)
+    if any((lib, id(spec)) not in _loaded for lib in libs):
+        build_all((spec,))
+    for lib in libs:
         _prepare(lib, spec, device)
 
 
@@ -381,9 +505,11 @@ def _library(lib: str, spec) -> ctypes.CDLL:
     with _lock:
         if key in _loaded:
             return _loaded[key]
+        if lib not in spec_libs(spec):
+            raise ValueError(f"{lib} is not built for {spec.name}")
         header = plan_header(spec)
         so = _so_path(lib, header)
-        job = _start_build(lib, header)
+        job = _start_build(lib, spec, header)
         if job is not None:
             _finish_build(lib, job)
         handle = ctypes.CDLL(so)
@@ -397,7 +523,7 @@ def _library(lib: str, spec) -> ctypes.CDLL:
         handle.fq_table_ints.restype = ctypes.c_int
         handle.fq_error_string.argtypes = [_I]
         handle.fq_error_string.restype = ctypes.c_char_p
-        if handle.fq_table_ints() != table_ints():
+        if handle.fq_table_ints() != table_ints(spec):
             raise RuntimeError(f"{lib}: table layout differs from "
                                "ops/kernels.py")
         _loaded[key] = handle
@@ -406,20 +532,20 @@ def _library(lib: str, spec) -> ctypes.CDLL:
 
 # -- the field tables the kernels read -----------------------------------------
 
-def table_ints() -> int:
-    return FQ_FOLD_ROWS * FQ_N + FQ_N
+def table_ints(spec) -> int:
+    return fold_rows(spec) * spec.n + spec.n
 
 
 def fq_tables(spec) -> np.ndarray:
     """The int32 table the kernels read from device memory: the fold rows
     (row k = 2**(b·(n+k)) mod p in limbs), then the subtraction pad.
-    Checks that every plan stays inside the kernels' fixed widths."""
+    Checks that every plan stays inside the kernels' widths."""
     _check_spec(spec)
-    for name in PLAN_NAMES:
+    for name in plan_names(spec):
         plan_steps(spec, name)
-    fold = spec._fold_np[:FQ_FOLD_ROWS]
+    fold = spec._fold_np[:fold_rows(spec)]
     tab = np.concatenate([fold.reshape(-1), spec._pad_np]).astype(np.int32)
-    assert tab.size == table_ints()
+    assert tab.size == table_ints(spec)
     return tab
 
 
@@ -470,51 +596,90 @@ def _raise_if(handle: ctypes.CDLL, name: str, err: int) -> None:
                            f"{handle.fq_error_string(err).decode()}")
 
 
+def _kernel_of(table: Dict, spec, what: str):
+    got = table.get(spec.name)
+    if got is None:
+        raise ValueError(f"{what} is not built for {spec.name}")
+    return got
+
+
 def fq_mul(spec, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-    """Batched loose-limb Fq multiply on the card (csrc/fq_mul.cu):
-    x, y (B, n) int32 → (B, n) int32, bit-identical to spec.mul_plain."""
-    batch = _check("fq_mul", (x, y), spec.n)
+    """Batched loose-limb Fq multiply on the card (csrc/fq_mul.cu, built
+    for the spec): x, y (B, n) int32 → (B, n) int32, bit-identical to
+    spec.mul_plain."""
+    kernel = _kernel_of(_FQ_MUL_OF, spec, "fq_mul")
+    batch = _check(kernel.name, (x, y), spec.n)
     handle = _prepare("fq_mul", spec, x.device)
     out = torch.empty_like(x)
     if batch:
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        _raise_if(handle, "fq_mul", handle.fq_mul_launch(
+        _raise_if(handle, kernel.name, handle.fq_mul_launch(
             out.data_ptr(), x.data_ptr(), y.data_ptr(), batch,
             x.device.index, stream))
-        FQ_MUL.count(batch)
+        kernel.count(batch)
     return out
+
+
+def _point_launch(kernel: Kernel, lib: str, fn: str, spec, ins,
+                  nout: int, consts=()) -> Tuple[torch.Tensor, ...]:
+    """Launch a point kernel over (B, n) coordinates `ins` (then the
+    constant rows `consts`, each (1, n)) into `nout` new coordinates."""
+    batch = _check(kernel.name, ins, spec.n)
+    dev = ins[0].device
+    for c in consts:
+        if c.device != dev or c.dtype != torch.int32 or \
+                c.shape != (1, spec.n) or not c.is_contiguous():
+            raise ValueError(f"{kernel.name}: constant rows must be "
+                             f"contiguous (1, {spec.n}) int32 on {dev}")
+    handle = _prepare(lib, spec, dev)
+    outs = tuple(torch.empty_like(ins[0]) for _ in range(nout))
+    if batch:
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        _raise_if(handle, kernel.name, getattr(handle, fn)(
+            *(t.data_ptr() for t in outs + tuple(ins) + tuple(consts)),
+            batch, dev.index, stream))
+        kernel.count(batch)
+    return outs
 
 
 def g1_add(spec, p: Tuple[torch.Tensor, ...],
            q: Tuple[torch.Tensor, ...]) -> Tuple[torch.Tensor, ...]:
-    """Fused RCB complete addition on G1 (csrc/g1_point.cu): projective
-    (x1,y1,z1) + (x2,y2,z2) → (x3,y3,z3), each (B, n) int32."""
-    ins = tuple(p) + tuple(q)
-    batch = _check("g1_add", ins, spec.n)
-    handle = _prepare("g1_point", spec, ins[0].device)
-    outs = tuple(torch.empty_like(ins[0]) for _ in range(3))
-    if batch:
-        stream = torch.cuda.current_stream(ins[0].device).cuda_stream
-        _raise_if(handle, "g1_add", handle.g1_add_launch(
-            *(t.data_ptr() for t in outs + ins), batch,
-            ins[0].device.index, stream))
-        G1_ADD.count(batch)
-    return outs
+    """Fused RCB complete addition of an a = 0 curve (csrc/g1_point.cu,
+    built for BLS12-381's G1 or secp256k1): projective (x1,y1,z1) +
+    (x2,y2,z2) → (x3,y3,z3), each (B, n) int32."""
+    kernel = _kernel_of(_G1_OF, spec, "g1_add")[0]
+    return _point_launch(kernel, "g1_point", "g1_add_launch", spec,
+                         tuple(p) + tuple(q), 3)
 
 
 def g1_dbl(spec, p: Tuple[torch.Tensor, ...]) -> Tuple[torch.Tensor, ...]:
-    """Fused a=0 doubling on G1 (csrc/g1_point.cu)."""
-    ins = tuple(p)
-    batch = _check("g1_dbl", ins, spec.n)
-    handle = _prepare("g1_point", spec, ins[0].device)
-    outs = tuple(torch.empty_like(ins[0]) for _ in range(3))
-    if batch:
-        stream = torch.cuda.current_stream(ins[0].device).cuda_stream
-        _raise_if(handle, "g1_dbl", handle.g1_dbl_launch(
-            *(t.data_ptr() for t in outs + ins), batch,
-            ins[0].device.index, stream))
-        G1_DBL.count(batch)
-    return outs
+    """Fused a=0 doubling (csrc/g1_point.cu, built for BLS12-381's G1 or
+    secp256k1)."""
+    kernel = _kernel_of(_G1_OF, spec, "g1_dbl")[1]
+    return _point_launch(kernel, "g1_point", "g1_dbl_launch", spec,
+                         tuple(p), 3)
+
+
+def ed_add(spec, p: Tuple[torch.Tensor, ...], q: Tuple[torch.Tensor, ...],
+           d2: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """Unified twisted-Edwards addition, a = −1 (csrc/ed_point.cu):
+    extended (x1,y1,z1,t1) + (x2,y2,z2,t2) → (x3,y3,z3,t3), each (B, n)
+    int32; d2 is the (1, n) limb row of 2d.  Bit-identical to the plain
+    ops/edwards.py add_plain."""
+    return _point_launch(ED_ADD, "ed_point", "ed_add_launch", spec,
+                         tuple(p) + tuple(q), 4, consts=(d2,))
+
+
+def wp_add_general(spec, p: Tuple[torch.Tensor, ...],
+                   q: Tuple[torch.Tensor, ...],
+                   b3: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """Complete projective addition for a = −3 (csrc/wp_point.cu, RCB
+    2016 Algorithm 1): (x1,y1,z1) + (x2,y2,z2) → (x3,y3,z3), each (B, n)
+    int32; b3 is the (1, n) limb row of 3b.  Bit-identical to the plain
+    ops/weierstrass.py GeneralCurveOps add."""
+    return _point_launch(WP_ADD_GENERAL, "wp_point",
+                         "wp_add_general_launch", spec, tuple(p) + tuple(q),
+                         3, consts=(b3,))
 
 
 # -- the pairing kernels (csrc/pairing.cu) ------------------------------------
@@ -527,7 +692,7 @@ def tower_smem_bytes(nregs: int) -> int:
     """Dynamic shared memory of a pairing-kernel launch (csrc/pairing.cu
     tower_prepare): the lane groups' product scratch, then `nregs`
     registers of one Fq element each."""
-    _, W = group_layout(TOWER_GROUP)
+    _, W = group_layout(TOWER_GROUP, _default_spec().n)
     lane_ints = 3 * W  # FqGroup::LANE_INTS: W of b, then 2W of a
     g = TOWER_GROUP
     stride = lane_ints + (3 * g - lane_ints % (2 * g)) % (2 * g)
@@ -618,11 +783,40 @@ def final_exp(spec, f, program: str = "final_exp") -> torch.Tensor:
     """f^(3(p¹²−1)/r) on the card: (B, 2, 3, 2, n) int32 → the same
     shape, bit-identical to FQ12.final_exponentiation.  `program` may
     name another 12-in, 12-out program of ops/tower_program.py for the
-    same kernel ("fq_inv": the measuring chain)."""
+    same kernel ("fq_inv": the measuring chain; "fq_inv12": fq_inv's)."""
     batch = f.shape[0]
     _check_tower("final_exp", spec, [(f, 12)], batch)
     return _tower_launch("final_exp", FINAL_EXP, spec, (f,), batch,
                          program=program)
+
+
+#: Fq elements fq_inv packs into one lane of final_exp_kernel (one Fq12).
+FQ_INV_PER_LANE = 12
+
+
+def has_fq_inv(spec) -> bool:
+    """Whether fq_inv serves the spec: the pairing library is built for
+    it."""
+    return "pairing" in spec_libs(spec)
+
+
+def fq_inv(spec, x: torch.Tensor) -> torch.Tensor:
+    """x^(p−2) of every element of x (..., n) int32 on the card, in one
+    launch of final_exp_kernel running the fq_inv12 program
+    (ops/tower_program.py): the elements packed twelve to a lane, zeros
+    after the last (inv(0) = 0).  Bit-identical to FieldSpec.inv_chain,
+    whose products the program records.  Counted as FQ_INV."""
+    flat = x.reshape(-1, spec.n)
+    count = flat.shape[0]
+    lanes = -(-count // FQ_INV_PER_LANE)
+    packed = torch.zeros((lanes * FQ_INV_PER_LANE, spec.n),
+                         dtype=torch.int32, device=x.device)
+    packed[:count] = flat
+    f = packed.view(lanes, 2, 3, 2, spec.n)
+    _check_tower("fq_inv", spec, [(f, 12)], lanes)
+    out = _tower_launch("final_exp", FQ_INV, spec, (f,), lanes,
+                        program="fq_inv12")
+    return out.view(-1, spec.n)[:count].reshape(x.shape)
 
 
 #: tower_probe modes, in the order of csrc/pairing.cu's tower_probe_kernel.

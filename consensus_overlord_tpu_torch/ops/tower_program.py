@@ -7,7 +7,9 @@ csrc/pairing.cu runs one interpreter in three kernels
 What each computes is a *program*: the exact sequence of base-field ops
 (mul, add, sub, neg, mul_small by 2, 3, 8, 12) that the plain PyTorch
 version in ops/pairing.py runs, so the kernel's outputs are
-bit-identical to it by construction.  This module makes the programs:
+bit-identical to it by construction.  ``final_exp_kernel`` also runs
+``fq_inv12``, twelve Fq inversions a lane (FieldSpec.inv on the card).
+This module makes the programs:
 
 * ``TraceField`` stands in for the base field under ops/pairing.py's
   ``Tower``: each element is a value id, and each op records one
@@ -137,7 +139,7 @@ class TraceField:
         return self._record(f"small{k}", x)
 
     pow_static = FieldSpec.pow_static
-    inv = FieldSpec.inv
+    inv = FieldSpec.inv_chain
 
 
 class Program:
@@ -567,6 +569,16 @@ def _fq_inv(spec, warps) -> Program:
     return compile_program(tf, f, out, warps)
 
 
+def _fq_inv12(spec, warps) -> Program:
+    """Twelve Fq inverses in final_exp_kernel's shape: each input element
+    to x^(p−2) by FieldSpec.inv_chain's products, twelve independent
+    chains of 489 (kernels.fq_inv packs a batch of elements twelve to a
+    lane)."""
+    tf, _ = _tower(spec)
+    f = tf.inputs((12,))
+    return compile_program(tf, f, tf.inv(f), warps)
+
+
 #: Dependent ops in each measuring chain (the inversion's product stages).
 CHAIN = 480
 
@@ -606,7 +618,8 @@ def _add_wide(spec, warps) -> Program:
 
 
 _MAKERS = {"miller_product": _miller, "fq12_mul": _fq12_mul,
-           "final_exp": _final_exp, "fq_inv": _fq_inv, "io": _io,
+           "final_exp": _final_exp, "fq_inv": _fq_inv,
+           "fq_inv12": _fq_inv12, "io": _io,
            "add_chain": _add_chain, "add_wide": _add_wide}
 
 

@@ -5,16 +5,20 @@
 Runs an in-process validator fleet until the target height, printing per-
 height commit latency and a one-line JSON summary: the main path of
 consensus_overlord_tpu/sim/run.py, with its argument names and defaults.
-With ``--crypto bls`` every node verifies on its own ``CudaBlsCrypto``
-(the reference's keys, 0x1000 + 7919·i) behind a batching frontier, on
-the card unless ``--device cpu`` asks for the CPU; with no GPU the
-provider's constructor raises and the run exits non-zero.
-``--crypto simhash`` is the dependency-free sim-grade provider.
+Every node verifies on its own device provider behind a batching
+frontier, on the card unless ``--device cpu`` asks for the CPU (the
+kernels' plain versions); with no GPU the providers' constructors raise
+and the run exits non-zero.  The schemes are the JAX package's five:
+``ed25519`` (the default; Ed25519CudaCrypto, seeds 0x4000 + 7919·i),
+``bls`` (CudaBlsCrypto, the reference's keys 0x1000 + 7919·i),
+``secp256k1`` and ``sm2`` (Secp256k1Crypto and Sm2Crypto, keys 0x2000
+and 0x3000 + 7919·i), and ``simhash``, the dependency-free sim-grade
+provider.  The breaker-less providers run inside SimDeviceCrypto, whose
+frontier keeps a device error as a fault: the run exits 3.
 
 Not ported yet (ROADMAP.md): chaos, soak and tenant flags and
 ``--shared-frontier``, the metrics exporter (``--statusz-port``), the
-causal commit tracer (``--critpath-out``), XLA-style profile capture,
-and the ed25519, secp256k1 and sm2 schemes.
+causal commit tracer (``--critpath-out``) and XLA-style profile capture.
 """
 
 from __future__ import annotations
@@ -82,37 +86,41 @@ def make_parser() -> argparse.ArgumentParser:
     parser.add_argument("--drop-rate", type=float, default=0.0)
     parser.add_argument("--seed", type=int, default=0,
                         help="router RNG seed (drop/delay schedule)")
-    parser.add_argument("--crypto", choices=["bls", "simhash"],
-                        default="bls",
-                        help="'bls': BLS12-381 on CudaBlsCrypto, votes "
-                        "and QCs past --device-threshold verified by the "
-                        "port's kernels; 'simhash': the dependency-free "
-                        "sim-grade provider (NOT real crypto).  Not "
-                        "ported yet: ed25519 (ROADMAP.md Queue 1 item "
-                        "12), secp256k1 and sm2 (item 13)")
+    parser.add_argument("--crypto",
+                        choices=["ed25519", "bls", "secp256k1", "sm2",
+                                 "simhash"],
+                        default="ed25519",
+                        help="the signature scheme: votes and QCs past "
+                        "--device-threshold are verified by the port's "
+                        "kernels (ed25519: Ed25519CudaCrypto, bls: "
+                        "CudaBlsCrypto, secp256k1 / sm2: Secp256k1Crypto "
+                        "/ Sm2Crypto); 'simhash' is the dependency-free "
+                        "sim-grade provider (NOT real crypto)")
     parser.add_argument("--device", choices=["cuda", "cpu"],
                         default="cuda",
-                        help="where --crypto bls providers run their "
-                        "device paths: the card, or the kernels' plain "
-                        "PyTorch versions on the CPU.  With no GPU, "
-                        "'cuda' fails; nothing falls back to the CPU")
+                        help="where the providers of every scheme but "
+                        "simhash run their device paths: the card, or "
+                        "the kernels' plain PyTorch versions on the CPU. "
+                        " With no GPU, 'cuda' fails; nothing falls back "
+                        "to the CPU")
     parser.add_argument("--frontier", action="store_true",
                         help="verify inbound signatures at the batching "
-                        "frontier (always on with --crypto bls: the "
-                        "device path needs coalesced batches and "
+                        "frontier (always on for the device schemes: "
+                        "the device path needs coalesced batches and "
                         "off-loop dispatch).  Auto-enabled at fleet "
                         f"scale (>= {FLEET_FRONTIER_MIN} validators)")
     parser.add_argument("--no-frontier", action="store_true",
                         help="force per-message host verify even at "
-                        "fleet scale (incompatible with --crypto bls)")
+                        "fleet scale (simhash only)")
     parser.add_argument("--frontier-linger-ms", type=float, default=2.0)
     parser.add_argument("--dispatch-deadline-s", type=float, default=None,
                         help="watchdog deadline for each blocking device "
-                        "call of the bls providers (rung-scaled).  "
+                        "call of the bls providers (rung-scaled; the "
+                        "other schemes have no watchdog).  "
                         "Default: CONSENSUS_DISPATCH_DEADLINE_S, else "
                         "off")
     parser.add_argument("--device-threshold", type=int, default=8,
-                        help="batch size at which the bls providers ship "
+                        help="batch size at which the providers ship "
                         "work to the device instead of the host oracle "
                         "(also their QC threshold)")
     parser.add_argument("--timeout", type=float, default=120.0)
@@ -120,17 +128,17 @@ def make_parser() -> argparse.ArgumentParser:
                         help="per-node flight-recorder capacity (events); "
                         "rings are dumped if the run times out.  0 = off")
     parser.add_argument("--prewarm", action="store_true",
-                        help="with --crypto bls: run one batch through "
-                        "every device path at every rung the fleet can "
-                        "hit before the fleet starts (crypto/warm.py), "
-                        "so the kernels' build and first touch stay out "
-                        "of the measured heights")
+                        help="run one batch through every device path "
+                        "at every rung the fleet can hit before the fleet "
+                        "starts (crypto/warm.py), so the kernels' build "
+                        "and first touch stay out of the measured "
+                        "heights (every scheme but simhash)")
     parser.add_argument("-v", "--verbose", action="store_true")
     return parser
 
 
 def crypto_factory(args):
-    """Node i's provider, or None for the harness default."""
+    """Node i's provider (the keys of the JAX package's sim.run)."""
     if args.crypto == "bls":
         from ..crypto.cuda_provider import CudaBlsCrypto
 
@@ -138,6 +146,20 @@ def crypto_factory(args):
             0x1000 + 7919 * i, device=args.device,
             device_threshold=args.device_threshold,
             dispatch_deadline_s=args.dispatch_deadline_s)
+    if args.crypto == "ed25519":
+        from ..crypto.ed25519_cuda import Ed25519CudaCrypto
+
+        return lambda i: Ed25519CudaCrypto(  # noqa: E731
+            (0x4000 + 7919 * i).to_bytes(32, "big"), device=args.device,
+            device_threshold=args.device_threshold)
+    if args.crypto in ("secp256k1", "sm2"):
+        from ..crypto.ecdsa_cuda import Secp256k1Crypto, Sm2Crypto
+
+        cls = Secp256k1Crypto if args.crypto == "secp256k1" else Sm2Crypto
+        base = 0x2000 if args.crypto == "secp256k1" else 0x3000
+        return lambda i: cls(  # noqa: E731
+            base + 7919 * i, device=args.device,
+            device_threshold=args.device_threshold)
     from ..crypto.provider import SimHashCrypto
 
     return lambda i: SimHashCrypto(  # noqa: E731
@@ -230,7 +252,7 @@ async def run(args, factory, use_frontier: bool, shards: int) -> dict:
         "shards": shards,
         "shard_workers": args.shard_workers,
         "crypto": args.crypto,
-        "device": args.device if args.crypto == "bls" else None,
+        "device": args.device if args.crypto != "simhash" else None,
         "total_s": round(total, 3),
         "ms_per_height": round(total * 1000 / args.heights, 1),
         "p50_ms": pct(0.50),
@@ -266,23 +288,24 @@ def main(argv=None) -> None:
         print(f"fleet default: --interval-ms scaled to {args.interval_ms} "
               f"for {args.validators} validators (pass --interval-ms "
               "explicitly to override)")
-    device_batched = args.crypto == "bls"
+    device_batched = args.crypto != "simhash"
     if args.no_frontier and device_batched:
-        parser.error("--no-frontier is incompatible with --crypto bls")
+        parser.error(f"--no-frontier is incompatible with --crypto "
+                     f"{args.crypto}")
     use_frontier = (not args.no_frontier
                     and (args.frontier or device_batched
                          or args.validators >= FLEET_FRONTIER_MIN))
     factory = crypto_factory(args)
 
     if args.prewarm and device_batched:
-        from ..crypto.warm import rungs_for, warm_bls
+        from ..crypto.warm import rungs_for, warm_bls, warm_simple
 
         t0 = time.time()
         warm = factory(10**6)  # same thresholds as the fleet's providers
         # Every rung the fleet's coalesced batches can hit: up to
         # ~validators lanes per batch, and at least the threshold.
         rungs = rungs_for(max(args.device_threshold, args.validators, 8))
-        warm_bls(warm, rungs)
+        (warm_bls if args.crypto == "bls" else warm_simple)(warm, rungs)
         print(f"prewarm: device paths loaded for rungs {rungs} "
               f"in {time.time() - t0:.1f}s")
 

@@ -14,13 +14,16 @@ ptxas's registers and spills of each kernel; where the checkout has the
 pairing kernels (csrc/pairing.cu), also miller_product (2 and 5 pairs),
 fq12_mul (1 lane) and final_exp (1 lane), over 20 launches.  Inputs are random loose
 limbs from --seed (the point formulas are polynomials, so any loose
-coordinates time them).  Giving the roots as parent, change, change,
+coordinates time them), the same in every root, and each line carries
+a SHA-256 of every output (`digest`): equal digests across roots mean
+bit-identical kernels.  Giving the roots as parent, change, change,
 parent compares two versions on one card within one run.  Needs a GPU.
 """
 
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import os
 import subprocess
@@ -52,7 +55,7 @@ def worker(root: str, seed: int, clock_hz: float) -> dict:
             0, fq.loose_max + 1, size=(lanes, fq.n),
             dtype=np.int32)).cuda()
 
-    out = {"root": root, "ptxas": ptxas_report(kernels)}
+    out = {"root": root, "ptxas": ptxas_report(kernels), "digest": {}}
     for name, sizes in SIZES.items():
         for lanes in sizes:
             a = tuple(loose(lanes) for _ in range(3))
@@ -60,6 +63,10 @@ def worker(root: str, seed: int, clock_hz: float) -> dict:
             run = {"fq_mul": lambda: kernels.fq_mul(fq, a[0], b[0]),
                    "g1_add": lambda: kernels.g1_add(fq, a, b),
                    "g1_dbl": lambda: kernels.g1_dbl(fq, a)}[name]
+            got = run()
+            got = got if isinstance(got, tuple) else (got,)
+            out["digest"][f"{name}@{lanes}"] = hashlib.sha256(b"".join(
+                t.cpu().numpy().tobytes() for t in got)).hexdigest()[:16]
             out[f"{name}@{lanes}"] = time_ms(torch, run, 100, clock_hz)
     if not hasattr(kernels, "miller_product"):
         return out

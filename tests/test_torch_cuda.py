@@ -186,6 +186,23 @@ def test_final_exp_kernel_matches_plain(cuda, batch):
                        pr.FQ12.final_exponentiation(f))
 
 
+@pytest.mark.parametrize("count", (1, 12, 13, 100))
+def test_fq_inv_kernel_matches_the_chain(cuda, count):
+    """FieldSpec.inv on the card is one fq_inv launch (final_exp_kernel on
+    the fq_inv12 program, twelve elements a lane) and no fq_mul launch,
+    equal to the plain chain (pow_static over mul_plain); inv(0) = 0."""
+    from consensus_overlord_tpu_torch.ops import pairing as pr
+    x = _tower_loose(np.random.default_rng(350 + count), count).to(cuda)
+    x[count // 2] = 0
+    before = kernels.counts()
+    got = dev.FQ.inv(x)
+    after = kernels.counts()
+    assert after["fq_inv"] == before["fq_inv"] + 1
+    assert after["fq_mul"] == before["fq_mul"]
+    assert torch.equal(got, pr.FQ.inv(x))
+    assert not got[count // 2].any()
+
+
 def test_device_pairing_verdicts_on_the_card(cuda):
     """The staged pair on the card (all three kernels) against the host
     oracle: a true and a forged relation at the 2-pair rung."""
@@ -378,3 +395,87 @@ def test_bls_fleet_on_the_card_commits_a_height(cuda):
     vote = Vote(1, proof.round, VoteType.PRECOMMIT, proof.block_hash)
     assert CpuBlsCrypto(0x1000).verify_aggregated_signature(
         proof.signature.signature, sm3_hash(vote.encode()), voters)
+
+
+# -- the 26-limb fields: Ed25519, secp256k1, SM2 ----------------------------------
+
+def _curve_fields():
+    from consensus_overlord_tpu_torch.ops import field
+    return (field.ED25519_FQ, field.SECP256K1_FQ, field.SM2_FQ)
+
+
+def _loose26(rng, spec, batch):
+    """Random loose limbs of a 26-limb field, every 7th lane at the loose
+    bound (the group laws are polynomials: kernel and plain version agree
+    on any loose input)."""
+    x = rng.integers(0, spec.loose_max + 1, size=(batch, spec.n),
+                     dtype=np.int32)
+    x[::7] = spec.loose_max
+    return torch.from_numpy(x)
+
+
+@pytest.mark.parametrize("field_index", (0, 1, 2))
+@pytest.mark.parametrize("batch", RAGGED)
+def test_fq_mul_26_limbs_matches_plain(cuda, batch, field_index):
+    spec = _curve_fields()[field_index]
+    rng = np.random.default_rng(400 + batch + field_index)
+    x, y = (_loose26(rng, spec, batch).to(cuda) for _ in range(2))
+    k = [k for k in kernels.KERNELS if k.name.startswith("fq_mul")
+         and k.spec == spec.name][0]
+    before = k.launches
+    assert torch.equal(spec.mul(x, y), spec.mul_plain(x, y))
+    assert k.launches == before + 1
+
+
+@pytest.mark.parametrize("batch", RAGGED)
+def test_ed_add_matches_plain(cuda, batch):
+    from consensus_overlord_tpu_torch.ops import edwards as ed
+    rng = np.random.default_rng(500 + batch)
+    pts = [ed.EdPoint(*(_loose26(rng, ed.FE, batch).to(cuda)
+                        for _ in range(4))) for _ in range(2)]
+    base = ed.base_point(batch, cuda)
+    for p, q in ((pts[0], pts[1]), (base, base),
+                 (base, ed.identity_like(base.x)), (base, ed.neg(base))):
+        before = kernels.ED_ADD.launches
+        got = ed.add(p, q)
+        assert kernels.ED_ADD.launches == before + 1
+        assert all(torch.equal(a, b) for a, b in zip(got, ed.add_plain(p, q)))
+
+
+@pytest.mark.parametrize("batch", RAGGED)
+def test_secp_and_sm2_kernels_match_plain(cuda, batch):
+    from consensus_overlord_tpu_torch.ops import weierstrass as w
+    for ops, spec in ((w.SECP, w.FQ_SECP), (w.SM2, w.FQ_SM2)):
+        rng = np.random.default_rng(600 + batch)
+        p, q = (w.Point(*(_loose26(rng, spec, batch).to(cuda)
+                          for _ in range(3))) for _ in range(2))
+        assert all(torch.equal(a, b) for a, b in
+                   zip(ops.add(p, q), ops.add_plain(p, q)))
+        if ops is w.SECP:
+            assert all(torch.equal(a, b) for a, b in
+                       zip(ops.dbl(p), ops.dbl_plain(p)))
+
+
+def test_curve_providers_on_the_card_match_the_host_rule(cuda):
+    """Each provider's verify_batch on the card against its own host rule
+    on a batch with a wrong signer and a malformed lane."""
+    from consensus_overlord_tpu_torch.crypto.ecdsa_cuda import (
+        Secp256k1Crypto, Sm2Crypto)
+    from consensus_overlord_tpu_torch.crypto.ed25519_cuda import (
+        Ed25519CudaCrypto)
+
+    h = b"\x0b" * 32
+    for make in (lambda i: Ed25519CudaCrypto(bytes([i + 1]) * 32,
+                                             device_threshold=1, device=cuda),
+                 lambda i: Secp256k1Crypto(0x2000 + i, device_threshold=1,
+                                           device=cuda),
+                 lambda i: Sm2Crypto(0x3000 + i, device_threshold=1,
+                                     device=cuda)):
+        provs = [make(i) for i in range(6)]
+        sigs = [p.sign(h) for p in provs]
+        voters = [p.pub_key for p in provs]
+        sigs[1], sigs[4] = sigs[2], sigs[4][:-1]
+        want = [provs[0].verify_signature(s, h, v)
+                for s, v in zip(sigs, voters)]
+        assert want == [True, False, True, True, False, True]
+        assert provs[0].verify_batch(sigs, [h] * 6, voters) == want

@@ -163,9 +163,15 @@ def test_kernel_wrapper_refuses_cpu_tensors():
 
 
 def test_kernel_tables_fit_the_kernels():
+    """The table is every fold row, then the pad; the kernels take any
+    field of 10-bit limbs up to BLS12-381's 39, so a 26-limb field's
+    table fits and a field of 11-bit limbs is refused."""
     tab = kernels.fq_tables(TFQ)
-    assert tab.dtype == np.int32 and tab.size == kernels.table_ints()
-    fold = tab[:kernels.FQ_FOLD_ROWS * TFQ.n].reshape(-1, TFQ.n)
-    assert np.array_equal(fold, TFQ._fold_np[:kernels.FQ_FOLD_ROWS])
+    rows = kernels.fold_rows(TFQ)
+    assert tab.dtype == np.int32 and tab.size == kernels.table_ints(TFQ)
+    fold = tab[:rows * TFQ.n].reshape(-1, TFQ.n)
+    assert rows == 47 and np.array_equal(fold, TFQ._fold_np[:rows])
+    ed = FieldSpec(2**255 - 19, limb_bits=10)
+    assert kernels.fq_tables(ed).size == kernels.table_ints(ed)
     with pytest.raises(ValueError):
-        kernels.fq_tables(FieldSpec(2**255 - 19, limb_bits=10))
+        kernels.fq_tables(FieldSpec(2**255 - 19, limb_bits=11))

@@ -11,7 +11,9 @@ import pytest
 import chip_smoke
 from consensus_overlord_tpu_torch.ops import kernels
 from consensus_overlord_tpu_torch.ops.field import (BLS12_381_FQ as TFQ,
-                                                    BLS12_381_P, FieldSpec)
+                                                    BLS12_381_P, ED25519_FQ,
+                                                    FieldSpec, SECP256K1_FQ,
+                                                    SM2_FQ)
 
 _STEP = re.compile(r"FQ_STEP\((PAD|FOLD|CARRY), (\d+), (\d+), (\d+)\)")
 
@@ -39,7 +41,7 @@ def test_plan_header_matches_field_plans_step_for_step():
         for kind, arg, w_in, w_out in got:
             assert w_in == width
             width = TFQ.n if kind == "fold" else width + arg
-            assert w_out == width <= kernels.FQ_MAXW
+            assert w_out == width <= kernels.max_width(TFQ)
         assert width == TFQ.n
 
 
@@ -50,6 +52,31 @@ def test_plan_header_is_deterministic():
     rows = max(a for steps in _header_plans(text).values()
                for k, a, _, _ in steps if k == "fold")
     assert f"#define FQ_GEN_FOLD_ROWS {rows}\n" in text
+
+
+@pytest.mark.parametrize("spec", (ED25519_FQ, SECP256K1_FQ, SM2_FQ),
+                         ids=lambda s: s.name)
+def test_26_limb_specs_get_their_own_header_and_tables(spec):
+    """Each 26-limb field passes the kernels' checks, and gets a header
+    of its own limb count and plans (secp256k1 also its 3b = 21 plan for
+    g1_point.cu), in its own build directory, and tables of its size."""
+    text = kernels.plan_header(spec)
+    assert "#define FQ_GEN_N 26\n" in text
+    plans = _header_plans(text)
+    assert list(plans) == list(kernels.plan_names(spec))
+    for name, got in plans.items():
+        bounds = kernels.plan_bounds(spec, name)
+        assert [(k, a) for k, a, _, _ in got] == spec._plan(list(bounds))
+        assert max(w for _, _, _, w in got) <= kernels.max_width(spec)
+    b3 = kernels.G1_B3.get(spec.name)
+    assert ("#define FQ_GEN_B3_PLAN FQ_PLAN_SMALL21\n" in text) == (b3 == 21)
+    assert kernels.header_dir(spec) != kernels.header_dir(TFQ)
+    assert text != kernels.plan_header(TFQ)
+    tab = kernels.fq_tables(spec)
+    assert tab.size == kernels.table_ints(spec) == 34 * 26 + 26
+    for lib in kernels.spec_libs(spec):
+        assert kernels._so_path(lib, text) != kernels._so_path(
+            lib, kernels.plan_header(TFQ))
 
 
 def test_so_path_follows_the_plan_header():
@@ -63,10 +90,19 @@ def test_so_path_follows_the_plan_header():
 
 @pytest.mark.parametrize("group", kernels.GROUP_SIZES)
 def test_lane_group_terms_cover_every_term_once(group):
-    L, W = kernels.group_layout(group)
-    assert W >= TFQ.n + 1 and 2 * W >= kernels.FQ_MAXW
-    n = TFQ.n
-    threads = kernels.group_terms(group)
+    _check_group_terms(group, TFQ)
+
+
+@pytest.mark.parametrize("group", kernels.GROUP_SIZES)
+def test_lane_group_terms_cover_every_term_once_at_26_limbs(group):
+    _check_group_terms(group, ED25519_FQ)
+
+
+def _check_group_terms(group, spec):
+    n = spec.n
+    L, W = kernels.group_layout(group, n)
+    assert W >= n + 1 and 2 * W >= kernels.max_width(spec)
+    threads = kernels.group_terms(group, n)
     assert len(threads) == group
     terms = Counter((i, j) for thread in threads for i, j, _ in thread)
     assert set(terms) == {(i, j) for i in range(n) for j in range(n)}
@@ -98,6 +134,35 @@ def test_lane_ops_count_each_pipe():
         fold_imads(p) for p in ("add2", "add2", "sub", "small8", "small12",
                                 "small3", "small2"))
     assert ops["g1_dbl"]["either"] == 7 * TFQ.n  # its 7 limb-wise ops
+
+
+def test_curve_lane_ops_count_each_kernel():
+    """chip_smoke.py's operation count for the 26-limb kernels, from
+    their field ops: ed_add 9 products, 5 adds and 4 subtractions;
+    wp_add_general 14 products, 15 adds, 6 subtractions, 4 triples and 3
+    negations; secp_add/secp_dbl g1_add/g1_dbl's with 3b = 21."""
+    def plan_imads(spec, name):
+        return spec.n * sum(a for k, a, _, _ in kernels.plan_steps(spec, name)
+                            if k == "fold")
+
+    for spec, fq_mul, want in (
+            (ED25519_FQ, "fq_mul_ed25519",
+             {"ed_add": (9, {"add2": 5, "sub": 4})}),
+            (SM2_FQ, "fq_mul_sm2",
+             {"wp_add_general": (14, {"add2": 15, "sub": 6, "small3": 4,
+                                      "neg": 3})}),
+            (SECP256K1_FQ, "fq_mul_secp256k1",
+             {"secp_add": (12, {"add2": 12, "sub": 5, "small3": 1,
+                                "small21": 2}),
+              "secp_dbl": (8, {"add2": 2, "sub": 1, "small8": 1,
+                               "small21": 1, "small3": 1, "small2": 1})})):
+        ops = chip_smoke.curve_lane_ops(spec)
+        mul = spec.n * spec.n + plan_imads(spec, "mul")
+        assert ops[fq_mul]["imad"] == mul
+        for name, (muls, small) in want.items():
+            assert ops[name]["imad"] == muls * mul + sum(
+                c * plan_imads(spec, p) for p, c in small.items())
+            assert ops[name]["either"] == sum(small.values()) * spec.n
 
 
 # (imad, alu, either) per lane, bytes in all, and the limit that binds.
@@ -135,4 +200,4 @@ def test_launch_sizes_histogram():
     assert kernels.size_buckets(k.sizes) == {1: 1, 2: 1, 4: 1, 8192: 2,
                                              16384: 1, 32768: 1}
     with pytest.raises(ValueError, match="lane groups"):
-        kernels.group_layout(32)
+        kernels.group_layout(32, TFQ.n)

@@ -179,7 +179,7 @@ def test_multi_pairing_verdicts_match_the_host():
 
 # -- the kernels' programs --------------------------------------------------------
 
-PROGRAMS = ["fq12_mul", "miller_product", "final_exp", "fq_inv"]
+PROGRAMS = ["fq12_mul", "miller_product", "final_exp", "fq_inv", "fq_inv12"]
 
 
 @pytest.mark.parametrize("name", PROGRAMS)
@@ -310,6 +310,40 @@ def test_final_exp_program_matches_plain():
     got = tprog.run_program(prog, BLS12_381_FQ, f.reshape(1, 12, N))
     assert torch.equal(got.reshape(f.shape),
                        tpr.FQ12.final_exponentiation(f))
+
+
+def test_fq_inv12_program_matches_the_inversion_chain():
+    """Twelve elements a lane (kernels.fq_inv's packing), one of them 0:
+    the program is FieldSpec.inv_chain bit for bit, element by element."""
+    rng = np.random.default_rng(87)
+    x = torch.from_numpy(loose(rng, 2, 12))
+    x[1, 5] = 0
+    prog = tprog.program("fq_inv12", BLS12_381_FQ)
+    got = tprog.run_program(prog, BLS12_381_FQ, x)
+    assert torch.equal(got, BLS12_381_FQ.inv_chain(x))
+    assert not got[1, 5].any()
+
+
+def test_field_inv_takes_the_chain_off_the_card():
+    """FieldSpec.inv of CPU tensors is inv_chain and launches nothing;
+    fq_inv serves only a field the pairing library is built for, and
+    refuses CPU tensors; PlainField's inv is its own chain."""
+    from consensus_overlord_tpu_torch.ops.field import (
+        ED25519_FQ, SECP256K1_FQ, SM2_FQ, PlainField)
+    rng = np.random.default_rng(91)
+    x = torch.from_numpy(loose(rng, 3))
+    before = kernels.counts()
+    assert torch.equal(BLS12_381_FQ.inv(x), BLS12_381_FQ.inv_chain(x))
+    assert torch.equal(PlainField(BLS12_381_FQ).inv(x),
+                       BLS12_381_FQ.inv_chain(x))
+    assert kernels.counts() == before
+    assert BLS12_381_FQ.to_ints(BLS12_381_FQ.mul(
+        BLS12_381_FQ.inv(x), x)) == [1, 1, 1]
+    assert kernels.has_fq_inv(BLS12_381_FQ)
+    assert not any(kernels.has_fq_inv(f)
+                   for f in (ED25519_FQ, SECP256K1_FQ, SM2_FQ))
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.fq_inv(BLS12_381_FQ, x)
 
 
 def test_pairing_wrappers_take_the_plain_path_on_the_cpu():

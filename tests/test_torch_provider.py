@@ -180,7 +180,11 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     for module in ("consensus_overlord_tpu_torch.compile_cache",
                    "consensus_overlord_tpu_torch.crypto.breaker",
                    "consensus_overlord_tpu_torch.crypto.cuda_provider",
+                   "consensus_overlord_tpu_torch.crypto.ecdsa_cuda",
+                   "consensus_overlord_tpu_torch.crypto.ed25519_cuda",
                    "consensus_overlord_tpu_torch.crypto.tenancy",
+                   "consensus_overlord_tpu_torch.ops.edwards",
+                   "consensus_overlord_tpu_torch.ops.weierstrass",
                    "consensus_overlord_tpu_torch.engine.smr",
                    "consensus_overlord_tpu_torch.obs.anomaly",
                    "consensus_overlord_tpu_torch.obs.causal",

@@ -567,7 +567,8 @@ def test_smoke_service_phase_without_jax_grpc_prometheus_or_protobuf(
     bad = chip_smoke.service_failures(report)
     assert [b.split(":")[0].split(" ran")[0] for b in bad] == [
         "the measured heights never launched ['fq_mul', 'g1_add', "
-        "'miller_product', 'final_exp']", "update_pubkeys", "aggregate",
+        "'miller_product', 'final_exp', 'fq_inv']", "update_pubkeys",
+        "aggregate",
         "qc_verify", "CheckBlock's signature checks did not run on the card"]
 
 

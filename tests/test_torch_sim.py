@@ -120,8 +120,71 @@ def test_bls_without_a_card_fails_instead_of_falling_back():
 
 @pytest.mark.parametrize("name", ["ed25519", "secp256k1", "sm2"])
 def test_schemes_not_ported_are_refused(name):
-    out = _run_entry(["--crypto", name, "--device", "cpu"])
+    """Each of the JAX package's schemes runs through the entry point on
+    the CPU (4 validators, one height, the providers' host path below
+    the default threshold); a scheme outside its five is refused."""
+    import json
+
+    out = _run_entry(["--crypto", name, "--device", "cpu", "--validators",
+                      "4", "--heights", "1", "--flightrec", "0"])
+    assert out.returncode == 0, out.stdout + out.stderr
+    lines = out.stdout.strip().splitlines()
+    assert lines[-1] == "LOADED []"
+    summary = json.loads(lines[-2])
+    assert (summary["crypto"], summary["device"]) == (name, "cpu")
+    assert summary["crypto_status"]["calls"]["verify_batch"]["host"] > 0
+    assert any(ln.startswith("height 1 committed") for ln in lines)
+    out = _run_entry(["--crypto", name + "x", "--device", "cpu"])
     assert out.returncode == 2 and "invalid choice" in out.stderr
+
+
+def test_ed25519_is_the_default_scheme():
+    from consensus_overlord_tpu_torch.sim import run as sim_run
+
+    args = sim_run.make_parser().parse_args([])
+    assert (args.crypto, args.device) == ("ed25519", "cuda")
+
+
+#: The device step each breaker-less provider's verify_batch goes through.
+_DEVICE_STEPS = {"ed25519": ("ed25519_cuda", "decompress_lanes"),
+                 "secp256k1": ("ecdsa_cuda", "verify_lanes"),
+                 "sm2": ("ecdsa_cuda", "verify_lanes")}
+
+
+@pytest.mark.parametrize("name", sorted(_DEVICE_STEPS))
+def test_device_fault_of_each_scheme_fails_the_run(name, monkeypatch):
+    """A device step raising a RuntimeError in a --device cpu fleet of
+    Ed25519CudaCrypto / Secp256k1Crypto / Sm2Crypto (each wrapped in
+    SimDeviceCrypto): the provider raises, the frontier keeps the
+    fault, nothing re-verifies on the host, and sim.run exits 3."""
+    import importlib
+
+    from consensus_overlord_tpu_torch.sim import run as sim_run
+
+    module, step = _DEVICE_STEPS[name]
+    mod = importlib.import_module(f"consensus_overlord_tpu_torch.crypto."
+                                  f"{module}")
+
+    def broken(*a, **k):
+        raise RuntimeError(f"{step}: device fault")
+
+    monkeypatch.setattr(mod, step, broken)
+    args = sim_run.make_parser().parse_args(
+        ["--crypto", name, "--device", "cpu", "--validators", "4",
+         "--heights", "1", "--device-threshold", "2", "--interval-ms",
+         "10000", "--timeout", "60", "--flightrec", "0"])
+    base = sim_run.crypto_factory(args)
+    built = []
+
+    def factory(i):
+        built.append(base(i))
+        return built[-1]
+
+    with pytest.raises(SystemExit) as exc:
+        asyncio.run(sim_run.run(args, factory, True, 1))
+    assert exc.value.code == 3
+    status = sum_status(p.degraded_status() for p in built)
+    assert status["calls"]["verify_batch"]["device"] >= 1
 
 
 def test_sum_status_adds_counts_and_tallies_states():
