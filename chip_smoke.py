@@ -126,12 +126,15 @@ elements, each also beside its latency bound
 one warp, timed by the measuring kernel tower_probe_kernel with no
 program table), with each program's epochs, steps per warp, registers
 and shared memory; and the kernels of the three other schemes (phase
-curve_kernels: fq_mul at 26 limbs for each field, ed_add, secp_add,
-secp_dbl, wp_add_general) on seeded loose limbs at the lane count each
-ran most often on its scheme's warm path, with their registers and
-spills.  Each phase prints one JSON line; the kernels
-line, the card's name and power limit, and the contract line close the
-output.  A profiled warm round, last so that the profiler touches no
+curve_kernels: fq_mul at 26 limbs for each field, ed_add, ed_ladder,
+secp_add, secp_dbl, wp_add_general, wp_dual_ladder) on seeded loose
+limbs at the launch size that carried the most lanes on its scheme's
+warm path, with their registers, spills and resident warps; each ladder
+also against the step-by-step route there (one point-kernel launch an
+add) and against its plain version at LADDER_PLAIN_LANES lanes (these
+rows of the kernels line give `lanes` for `ms` and `plain_lanes` for
+`plain_ms`).  Each phase prints one JSON line; the kernels line, the
+card's name and power limit, and the contract line close the output.  A profiled warm round, last so that the profiler touches no
 host-clock phase, reports the device-busy time by kernel.  Any failure exits non-zero.  Exits 2 without a result when no
 GPU is visible; fixtures are cached under .smoke_fixtures/.
 """
@@ -646,8 +649,8 @@ def crosscheck(prov, s0, sigs, h, pks) -> dict:
 
 _PTXAS_NAME = re.compile(r"(fq_mul_kernel|g1_dbl_kernel|g1_add_kernel|"
                          r"miller_product_kernel|fq12_mul_kernel|"
-                         r"final_exp_kernel|ed_add_kernel|"
-                         r"wp_add_general_kernel)")
+                         r"final_exp_kernel|ed_add_kernel|ed_ladder_kernel|"
+                         r"wp_add_general_kernel|wp_dual_ladder_kernel)")
 
 
 def ptxas_report(kernels, spec=None) -> dict:
@@ -1904,9 +1907,14 @@ def drive_main_path(prov, s0, hashes, pks, sigs, sync):
 #: top rung, secp256k1-1024 config 3's 1k validators.
 CURVE_LANES = {"ed25519": 8192, "secp256k1": 1024, "sm2": 8192}
 #: The kernels each scheme's verify path launches.
-CURVE_KERNELS = {"ed25519": ("fq_mul_ed25519", "ed_add"),
+CURVE_KERNELS = {"ed25519": ("fq_mul_ed25519", "ed_add", "ed_ladder"),
                  "secp256k1": ("fq_mul_secp256k1", "secp_add", "secp_dbl"),
-                 "sm2": ("fq_mul_sm2", "wp_add_general")}
+                 "sm2": ("fq_mul_sm2", "wp_add_general", "wp_dual_ladder")}
+#: The ladders' scalar bits on the verify paths.
+LADDER_BITS = 256
+#: Lanes at which each ladder is held against its plain version (the
+#: plain ladder is 384–512 plain adds, so it runs once).
+LADDER_PLAIN_LANES = 1024
 #: Lanes of each scheme's adversarial batch.
 CURVE_BAD_LANES = 64
 
@@ -2019,12 +2027,17 @@ def curve_lane_ops(spec) -> dict:
     """int32 instructions per lane of the 26-limb fields' kernels, by
     pipe, counted from their field ops (csrc/ed_point.cu,
     g1_point.cu built with 3b = 21, wp_point.cu)."""
+    from consensus_overlord_tpu_torch.ops import kernels
+
     f = field_ops(spec)
     name = spec.name
     if name == "F_ed25519":
-        return {"fq_mul_ed25519": f["mul"],
-                "ed_add": _ops((9, f["mul"]), (5, f["add"]),
-                               (4, f["sub"]))}
+        ed_add = _ops((9, f["mul"]), (5, f["add"]), (4, f["sub"]))
+        # Per bit two adds and a select of four coordinates.
+        select = {"imad": 0, "alu": 0, "either": 4 * spec.n}
+        return {"fq_mul_ed25519": f["mul"], "ed_add": ed_add,
+                "ed_ladder": _ops((2 * LADDER_BITS, ed_add),
+                                  (LADDER_BITS, select))}
     if name == "secp256k1_fq":
         return {"fq_mul_secp256k1": f["mul"],
                 "secp_add": _ops((12, f["mul"]), (12, f["add"]),
@@ -2034,10 +2047,13 @@ def curve_lane_ops(spec) -> dict:
                                  (1, f["sub"]), (1, f["small8"]),
                                  (1, f["small21"]), (1, f["small3"]),
                                  (1, f["small2"]))}
-    return {"fq_mul_sm2": f["mul"],
-            "wp_add_general": _ops((14, f["mul"]), (15, f["add"]),
-                                   (6, f["sub"]), (4, f["small3"]),
-                                   (3, f["neg"]))}
+    wp_add = _ops((14, f["mul"]), (15, f["add"]), (6, f["sub"]),
+                  (4, f["small3"]), (3, f["neg"]))
+    # Per window LADDER_WINDOW doublings and two table adds.
+    window = kernels.LADDER_WINDOW
+    return {"fq_mul_sm2": f["mul"], "wp_add_general": wp_add,
+            "wp_dual_ladder": _ops(((window + 2) * (LADDER_BITS // window),
+                                    wp_add))}
 
 
 def curve_phase(torch, kernels, scheme: str, seed: int) -> dict:
@@ -2119,18 +2135,94 @@ def curve_phase(torch, kernels, scheme: str, seed: int) -> dict:
     return out, sizes
 
 
+def time_once(torch, fn) -> float:
+    """Device-clock ms of one call of fn (CUDA events around it; the
+    host's issue inside the call counts): for the plain ladders and the
+    step-by-step routes, hundreds of launches a call."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop)
+
+
+def ladder_cases(torch, name: str, lanes: int, gen):
+    """A ladder kernel's cases on seeded inputs (loose limbs, a row of
+    each at the loose bound; random 256-bit scalars): its run at `lanes`
+    with the step-by-step route there (one point-kernel launch an add),
+    and its run on the first LADDER_PLAIN_LANES lanes with the plain
+    ladder there.  Returns (spec, run, steps, run_m, plain, bytes)."""
+    from consensus_overlord_tpu_torch.ops import edwards as ed
+    from consensus_overlord_tpu_torch.ops import kernels
+    from consensus_overlord_tpu_torch.ops import weierstrass as w
+    from consensus_overlord_tpu_torch.ops.curve import Point
+
+    spec = ed.FE if name == "ed_ladder" else w.FQ_SM2
+    m = LADDER_PLAIN_LANES
+    window, rows = kernels.LADDER_WINDOW, kernels.LADDER_TABLE
+    windows = LADDER_BITS // window
+
+    def limbs(k):
+        t = torch.randint(0, spec.loose_max + 1, (k, lanes, spec.n),
+                          dtype=torch.int32, device="cuda", generator=gen)
+        t[:, :7] = spec.loose_max
+        return list(t)
+
+    def scalar_bits():
+        return torch.randint(0, 2, (lanes, LADDER_BITS), dtype=torch.int32,
+                             device="cuda", generator=gen)
+
+    if name == "ed_ladder":
+        p, bits = ed.EdPoint(*limbs(4)), scalar_bits()
+        packed = ed.pack_bits(bits)
+        pm = ed.EdPoint(*(c[:m] for c in p))
+        return (spec, lambda: ed.ladder(p, packed, LADDER_BITS),
+                lambda: ed.scalar_mul_steps(p, bits),
+                lambda: ed.ladder(pm, packed[:m], LADDER_BITS),
+                lambda: ed.ladder_plain(pm, packed[:m], LADDER_BITS),
+                lanes * (8 * spec.n * 4 + LADDER_BITS // 8))
+    g = w.SM2.from_affine(spec.constant(w.SM2_GX, "cuda")[None],
+                          spec.constant(w.SM2_GY, "cuda")[None])
+    tg, tq = w._tables(w.SM2, g, Point(*limbs(3)), window)
+    dg, dq = (w._window_digits(scalar_bits(), window) for _ in range(2))
+    packed = w.pack_digits(dg, dq)
+    tqm = Point(*(c[:, :m].contiguous() for c in tq))
+    row = 3 * spec.n * 4
+    return (spec, lambda: w.dual_ladder(tg, tq, packed, windows),
+            lambda: w._dual_steps(w.SM2, tg, tq, dg, dq, window, w.SM2.add,
+                                  w.SM2.dbl),
+            lambda: w.dual_ladder(tg, tqm, packed[:m], windows),
+            lambda: w.dual_ladder_plain(tg, tqm, packed[:m], windows),
+            lanes * (windows * (row + 1) + row) + rows * row)
+
+
+def _equal(torch, got, want) -> bool:
+    return all(torch.equal(a, b) for a, b in zip(got, want))
+
+
 def curve_kernel_checks(torch, kernels, sizes: dict, launches: dict,
                         card: dict, seed: int, ptxas: dict):
     """Each kernel of the three schemes vs its plain version on the card
     (tolerance 0, torch.equal) on seeded loose limbs, timed beside its
-    bound at the lane count it ran most often on its phase's warm path
-    (the lane-heaviest on a tie)."""
+    bound at the launch size that carried the most lanes on its phase's
+    warm path (lanes × launches), with its registers, spills and resident
+    warps.  A ladder is held to the step-by-step route at that lane
+    count and to its plain version at LADDER_PLAIN_LANES (the plain
+    ladder and the route timed once)."""
     from consensus_overlord_tpu_torch.ops import edwards as ed
     from consensus_overlord_tpu_torch.ops import weierstrass as w
     from consensus_overlord_tpu_torch.ops.curve import Point
 
     gen = torch.Generator(device="cuda").manual_seed(seed)
     rows, phase = [], {"phase": "curve_kernels", "kernels": []}
+    fns = {"fq_mul": "fq_mul_kernel", "ed_add": "ed_add_kernel",
+           "ed_ladder": "ed_ladder_kernel", "secp_add": "g1_add_kernel",
+           "secp_dbl": "g1_dbl_kernel",
+           "wp_add_general": "wp_add_general_kernel",
+           "wp_dual_ladder": "wp_dual_ladder_kernel"}
     for spec in (ed.FE, w.FQ_SECP, w.FQ_SM2):
         ops = curve_lane_ops(spec)
 
@@ -2143,59 +2235,82 @@ def curve_kernel_checks(torch, kernels, sizes: dict, launches: dict,
 
         for name, lane_ops_ in ops.items():
             by = sizes[name]
-            lanes = max(by, key=lambda b: (by[b], b))
-            c = limbs(lanes, 8)
-            if name.startswith("fq_mul"):
-                run, plain = (lambda: spec.mul(c[0], c[1]),
-                              lambda: spec.mul_plain(c[0], c[1]))
-                coords = 3
-            elif name == "ed_add":
-                p, q = ed.EdPoint(*c[:4]), ed.EdPoint(*c[4:])
-                run, plain = (lambda: ed.add(p, q),
-                              lambda: ed.add_plain(p, q))
-                coords = 12
-            elif name == "secp_dbl":
-                p = Point(*c[:3])
-                run, plain = (lambda: w.SECP.dbl(p),
-                              lambda: w.SECP.dbl_plain(p))
-                coords = 6
+            lanes = max(by, key=lambda b: (b * by[b], b))
+            extra = {}
+            if name.endswith("ladder"):
+                _, run, steps, run_m, plain, nbytes = ladder_cases(
+                    torch, name, lanes, gen)
+                got, want = run(), steps()
+                if not _equal(torch, got, want):
+                    fail(f"{name} differs from the step-by-step route at "
+                         f"B = {lanes}")
+                got_m, want_m = run_m(), plain()
+                if not (_equal(torch, got_m, want_m) and _equal(
+                        torch, got_m, (c[:LADDER_PLAIN_LANES] for c in got))):
+                    fail(f"{name} differs from its plain version at B = "
+                         f"{LADDER_PLAIN_LANES}")
+                err = max(int((a.long() - b.long()).abs().max())
+                          for a, b in zip(got_m, want_m))
+                ms = time_ms(torch, run, 10, card["clock_hz"])
+                plain_ms = time_once(torch, plain)
+                plain_lanes = LADDER_PLAIN_LANES
+                extra = {"steps_ms": time_once(torch, steps)}
             else:
-                ops_ = w.SECP if name == "secp_add" else w.SM2
-                p, q = Point(*c[:3]), Point(*c[3:6])
-                run, plain = (lambda: ops_.add(p, q),
-                              lambda: ops_.add_plain(p, q))
-                coords = 9
-            got, want = run(), plain()
-            got = got if isinstance(got, tuple) else (got,)
-            want = want if isinstance(want, tuple) else (want,)
-            if not all(torch.equal(a, b) for a, b in zip(got, want)):
-                fail(f"{name} differs from its plain version at B = "
-                     f"{lanes}")
-            bound_ms, bound_by = bound(lane_ops_, lanes,
-                                       coords * spec.n * 4 * lanes,
+                c = limbs(lanes, 8)
+                if name.startswith("fq_mul"):
+                    run, plain = (lambda: spec.mul(c[0], c[1]),
+                                  lambda: spec.mul_plain(c[0], c[1]))
+                    coords = 3
+                elif name == "ed_add":
+                    p, q = ed.EdPoint(*c[:4]), ed.EdPoint(*c[4:])
+                    run, plain = (lambda: ed.add(p, q),
+                                  lambda: ed.add_plain(p, q))
+                    coords = 12
+                elif name == "secp_dbl":
+                    p = Point(*c[:3])
+                    run, plain = (lambda: w.SECP.dbl(p),
+                                  lambda: w.SECP.dbl_plain(p))
+                    coords = 6
+                else:
+                    ops_ = w.SECP if name == "secp_add" else w.SM2
+                    p, q = Point(*c[:3]), Point(*c[3:6])
+                    run, plain = (lambda: ops_.add(p, q),
+                                  lambda: ops_.add_plain(p, q))
+                    coords = 9
+                got, want = run(), plain()
+                got = got if isinstance(got, tuple) else (got,)
+                want = want if isinstance(want, tuple) else (want,)
+                if not _equal(torch, got, want):
+                    fail(f"{name} differs from its plain version at B = "
+                         f"{lanes}")
+                err = max(int((a.long() - b.long()).abs().max())
+                          for a, b in zip(got, want))
+                nbytes = coords * spec.n * 4 * lanes
+                ms = time_ms(torch, run, 100, card["clock_hz"])
+                plain_ms = time_ms(torch, plain, 10, card["clock_hz"])
+                plain_lanes = lanes
+            bound_ms, bound_by = bound(lane_ops_, lanes, nbytes,
                                        card["clock_hz"])
             k = {kk.name: kk for kk in kernels.KERNELS}[name]
-            fn = {"fq_mul": "fq_mul_kernel", "ed_add": "ed_add_kernel",
-                  "secp_add": "g1_add_kernel", "secp_dbl": "g1_dbl_kernel",
-                  "wp_add_general": "wp_add_general_kernel"}[
-                      "fq_mul" if name.startswith("fq_mul") else name]
+            fn = fns["fq_mul" if name.startswith("fq_mul") else name]
             regs = ptxas[spec.name].get(fn, {})
             if regs.get("spill_stores", 1) or regs.get("spill_loads", 1):
                 fail(f"{name}: spills or missing from the ptxas report")
-            ms = time_ms(torch, run, 100, card["clock_hz"])
             row = {"name": name, "route": k.route, "source": k.source,
                    "replaces": k.replaces, "launches": launches[name],
-                   "max_abs_err": max(int((a.long() - b.long()).abs().max())
-                                      for a, b in zip(got, want)),
-                   "ms": ms,
-                   "plain_ms": time_ms(torch, plain, 10, card["clock_hz"]),
+                   "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                    "bound_ms": bound_ms, "bound_by": bound_by,
-                   "library_ms": None}
+                   "library_ms": None, "lanes": lanes,
+                   "plain_lanes": plain_lanes}
             rows.append(row)
-            phase["kernels"].append({**row, "lanes": lanes,
+            warps = (kernels.resident_warps(name, spec,
+                                            torch.device("cuda"))
+                     if name in kernels._OCCUPANCY else None)
+            phase["kernels"].append({**row,
                                      "time_over_bound": ms / bound_ms,
                                      "registers": regs.get("registers"),
-                                     "spill_stores": regs["spill_stores"]})
+                                     "spill_stores": regs["spill_stores"],
+                                     "resident_warps": warps, **extra})
     return rows, phase
 
 

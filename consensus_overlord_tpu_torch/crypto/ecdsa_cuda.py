@@ -11,8 +11,10 @@ Both are one dual-scalar multiplication u1·G + u2·Q (ops/weierstrass.py
 for projective (X : Y : Z) holds iff X == ĉ·Z for a lift ĉ ∈ {c, c + n}
 ∩ [0, p).  ``verify_lanes`` is the port of the JAX jit
 ``_verify_kernel(curve)``: on the card secp256k1's add and doubling run
-csrc/g1_point.cu built for its field, SM2's add csrc/wp_point.cu, and
-the products of the x test the fq_mul kernel of the curve's field.
+csrc/g1_point.cu built for its field, one launch a step; SM2's table
+adds run csrc/wp_point.cu's add and its ladder one launch of the same
+source's wp_dual_ladder kernel; the products of the x test run the
+fq_mul kernel of the curve's field.
 
 Scheme rules, as in the JAX package: secp256k1 verification enforces
 low-s (s ≤ (n−1)/2) and ``sign`` emits low-s; SM2 signs the 32-byte

@@ -9,8 +9,9 @@ RFC 8032 batch relation with 128-bit random weights z_i,
 is one MSM over 2N + 2 lanes (the negated R and A lanes, the base point
 and an identity pad) on the card: ``decompress_lanes`` (the JAX jit
 ``_ed_decompress``) on the fq_mul kernel built for 2^255 − 19, and
-``msm_is_identity`` (the JAX jit ``_ed_msm_is_identity``) on the ed_add
-kernel (csrc/ed_point.cu).  A failed relation localizes exactly: each
+``msm_is_identity`` (the JAX jit ``_ed_msm_is_identity``): the 256-bit
+ladder of every lane in one launch of the ed_ladder kernel, then the
+tree sum and [8] on the ed_add kernel (both csrc/ed_point.cu).  A failed relation localizes exactly: each
 valid lane is checked on the host.
 
 Every path applies the same *cofactored* acceptance rule: the batch

@@ -125,6 +125,32 @@ __device__ __forceinline__ void fq_lane_init(FqLane<G>& ln, int* scratch) {
   }
 }
 
+// This thread's lane, read afresh from the special registers each call:
+// the compiler cannot keep it, or addresses made from it, live across a
+// long body (a ladder), where the registers go to the body; the reads
+// are cheap where the lane is needed (loads and stores of the lane's
+// rows).
+__device__ __forceinline__ unsigned fq_tid_now() {
+  unsigned tid;
+#ifdef __CUDA_ARCH__
+  asm volatile("mov.u32 %0, %%tid.x;" : "=r"(tid));
+#else
+  tid = threadIdx.x;
+#endif
+  return tid;
+}
+
+template <int THREADS, int G>
+__device__ __forceinline__ long fq_lane_now() {
+  unsigned cta;
+#ifdef __CUDA_ARCH__
+  asm volatile("mov.u32 %0, %%ctaid.x;" : "=r"(cta));
+#else
+  cta = blockIdx.x;
+#endif
+  return (long)cta * (THREADS / G) + fq_tid_now() / G;
+}
+
 template <int G>
 __device__ __forceinline__ void fq_load(Fe<G>& e, const int* src, long lane,
                                         int batch, int t) {
@@ -143,6 +169,16 @@ __device__ __forceinline__ void fq_store(int* dst, const Fe<G>& e,
     const int j = t * FqGroup<G>::L + s;
     if (lane < batch && j < FQ_N) dst[lane * FQ_N + j] = e.v[s];
   }
+}
+
+// Store a result of this thread's lane, its lane and slots read afresh.
+template <int THREADS, int G, int K>
+__device__ __forceinline__ void fq_store_now(int* const (&dst)[K],
+                                             const Fe<G> (&e)[K], int batch) {
+  const long lane = fq_lane_now<THREADS, G>();
+  const int t = fq_tid_now() & (G - 1);
+#pragma unroll
+  for (int k = 0; k < K; ++k) fq_store(dst[k], e[k], lane, batch, t);
 }
 
 // N wide accumulators of one lane group, reduced in lockstep by a plan.
@@ -193,8 +229,22 @@ struct FqGroupAcc {
   // lo += Σ_r h_r · fold[r] for the A positions h_r = v[n + r], which
   // are then consumed.  Fold rows are 0 past limb n − 1, so h positions in
   // the low part keep their value until they are cleared.
+  // In the 256-bit fields' build, the h_r that lie in the low part
+  // (n <= p < W) are read before any row is added: the rows add 0 there,
+  // but read as they are updated they would chain each of those rows'
+  // shuffle to the previous row's multiply-adds.  BLS12-381's build keeps
+  // the fold as it was measured.
+  static constexpr bool SNAP = FQ_N <= 32;
+
   template <int A>
   __device__ __forceinline__ void fold() {
+    constexpr int S = SNAP ? (A < W - FQ_N ? A : W - FQ_N) : 0;
+    int src[N][S > 0 ? S : 1];
+#pragma unroll
+    for (int n = 0; n < N; ++n) {
+#pragma unroll
+      for (int r = 0; r < S; ++r) src[n][r] = lo[n][(FQ_N + r) % L];
+    }
 #pragma unroll
     for (int r = 0; r < A; ++r) {
       const int p = FQ_N + r;
@@ -216,9 +266,11 @@ struct FqGroupAcc {
       }
 #pragma unroll
       for (int n = 0; n < N; ++n) {
-        const int h = __shfl_sync(FQ_FULL_MASK,
-                                  in_hi ? hi[n][q % L] : lo[n][q % L],
-                                  q / L, G);
+        const int h = __shfl_sync(
+            FQ_FULL_MASK,
+            r < S ? src[n][r < S ? r : 0]
+                  : in_hi ? hi[n][q % L] : lo[n][q % L],
+            q / L, G);
 #pragma unroll
         for (int s = 0; s < L; ++s) lo[n][s] += h * f[s];
       }
@@ -334,6 +386,39 @@ __device__ __forceinline__ void fq_mul_n(const FqLane<G>& ln,
   for (int n = 0; n < N; ++n) {
 #pragma unroll
     for (int s = 0; s < L; ++s) r[n].v[s] = lo[n][s];
+  }
+}
+
+// r[k] = a_k · b_k for K independent products, NP at a time in lockstep
+// (the lane scratch holds NP products).  ops(k, a, b) makes operand pair
+// k (k an FqIndex<k>) just before its chunk, so only a
+// chunk's operands are live: a smaller NP keeps fewer values in
+// registers, a larger one overlaps more chains.  The products are the
+// same whatever NP is.
+template <int K>
+struct FqIndex {
+  static constexpr int value = K;
+};
+
+template <int O, int M0, int M, class Ops, class F>
+__device__ __forceinline__ void fq_operands(Ops& ops, F (&x)[M], F (&y)[M]) {
+  if constexpr (M0 < M) {
+    ops(FqIndex<O + M0>{}, x[M0], y[M0]);
+    fq_operands<O, M0 + 1, M>(ops, x, y);
+  }
+}
+
+template <int G, int NP, int K, int O = 0, class Ops>
+__device__ __forceinline__ void fq_mul_staged(const FqLane<G>& ln,
+                                              Fe<G> (&r)[K], Ops&& ops) {
+  if constexpr (O < K) {
+    constexpr int M = K - O < NP ? K - O : NP;
+    Fe<G> x[M], y[M], z[M];
+    fq_operands<O, 0, M>(ops, x, y);
+    fq_mul_n<G, M>(ln, z, x, y);
+#pragma unroll
+    for (int m = 0; m < M; ++m) r[O + m] = z[m];
+    fq_mul_staged<G, NP, K, O + M>(ln, r, ops);
   }
 }
 

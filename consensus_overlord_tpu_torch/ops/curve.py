@@ -52,6 +52,12 @@ def int_to_bits_msb_np(values: Sequence[int], nbits: int) -> np.ndarray:
         np.int32)
 
 
+def int32_words(v: Tensor) -> Tensor:
+    """Words of 32 bits held in int64 as values in [0, 2**32) → int32
+    with the same bits (the ladder kernels read them as unsigned)."""
+    return torch.where(v >= 1 << 31, v - (1 << 32), v).to(torch.int32)
+
+
 def _stack(points: List[Point]) -> Point:
     return Point(torch.stack([p.x for p in points]),
                  torch.stack([p.y for p in points]),

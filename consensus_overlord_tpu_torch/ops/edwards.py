@@ -10,8 +10,14 @@ JAX scans, this module runs a Python loop.
 
 ``add`` is a kernel's wrapper: on CUDA tensors it launches
 csrc/ed_point.cu (kernels.ed_add), on CPU tensors it runs ``add_plain``,
-the formula over the plain field.  Decompression's field ops run the
-fq_mul kernel built for this field on CUDA tensors.
+the formula over the plain field.  ``scalar_mul_bits`` packs the bits
+(``pack_bits``) and runs ``ladder``: on CUDA tensors the whole ladder
+is one launch of the same source's ed_ladder_kernel
+(kernels.ed_ladder), on CPU tensors ``ladder_plain``, the JAX scan's
+loop over ``add_plain`` fed from the packed bits.
+``scalar_mul_steps`` is that loop over ``add``, one ed_add launch a
+step on CUDA tensors.  Decompression's field ops run the fq_mul kernel
+built for this field on CUDA tensors.
 
 Host side, in Python ints: the RFC 8032 key and signature of a seed
 (``host_pub_key``, ``host_sign``; byte-equal to the JAX package's) and
@@ -30,7 +36,7 @@ import numpy as np
 import torch
 
 from . import kernels
-from .curve import int_to_bits_msb_np
+from .curve import int32_words, int_to_bits_msb_np
 from .field import ED25519_FQ, ED25519_P, PlainField, Tensor
 
 FE = ED25519_FQ
@@ -140,15 +146,63 @@ def is_identity(p: EdPoint) -> Tensor:
     return FE.is_zero(p.x) & FE.is_zero(p.t) & FE.eq(p.y, p.z)
 
 
-def scalar_mul_bits(p: EdPoint, bits: Tensor) -> EdPoint:
-    """p_i · k_i for per-lane MSB-first bit tensors, batch + (nbits,): a
-    doubling and an add of p where the bit is set, per bit, as the JAX
-    scan does."""
+def _ladder(p: EdPoint, bits: Tensor, add_fn) -> EdPoint:
     acc = identity_like(p.x)
     for bit in torch.movedim(bits, -1, 0).bool():
-        acc2 = add(acc, acc)
-        acc = select(bit, add(acc2, p), acc2)
+        acc2 = add_fn(acc, acc)
+        acc = select(bit, add_fn(acc2, p), acc2)
     return acc
+
+
+def scalar_mul_steps(p: EdPoint, bits: Tensor) -> EdPoint:
+    """p_i · k_i for per-lane MSB-first bit tensors, batch + (nbits,): a
+    doubling and an add of p where the bit is set, per bit, as the JAX
+    scan does; on CUDA tensors one ed_add launch per add."""
+    return _ladder(p, bits, add)
+
+
+def pack_bits(bits: Tensor) -> Tensor:
+    """(B, nbits) MSB-first bits (nonzero = 1) → (B, ceil(nbits / 32))
+    int32: bit i in word i // 32 at position 31 − i % 32, the ladder
+    kernel's layout (32 bytes a lane at 256 bits)."""
+    b, nbits = bits.shape
+    words = kernels.packed_words(nbits, 32)
+    wide = torch.zeros((b, words * 32), dtype=torch.int64, device=bits.device)
+    wide[:, :nbits] = bits != 0
+    shifts = torch.arange(31, -1, -1, device=bits.device)
+    return int32_words((wide.view(b, words, 32) << shifts).sum(-1))
+
+
+def unpack_bits(packed: Tensor, nbits: int) -> Tensor:
+    """pack_bits' inverse: (B, nbits) int32 bits of 0 and 1."""
+    shifts = torch.arange(31, -1, -1, device=packed.device)
+    bits = (packed.long()[..., None] >> shifts) & 1
+    return bits.reshape(packed.shape[0], -1)[:, :nbits].to(torch.int32)
+
+
+def ladder_plain(p: EdPoint, packed: Tensor, nbits: int) -> EdPoint:
+    """The plain version of the ed_ladder kernel: the JAX scan's loop
+    over add_plain, on any device, launching no kernel."""
+    return _ladder(p, unpack_bits(packed, nbits), add_plain)
+
+
+def ladder(p: EdPoint, packed: Tensor, nbits: int) -> EdPoint:
+    """p_i · k_i for (B, n) coordinates and pack_bits' words: the
+    ed_ladder kernel on CUDA tensors (one launch), ladder_plain on CPU
+    tensors; the two are bit-identical."""
+    if p.x.device.type == "cpu":
+        return ladder_plain(p, packed, nbits)
+    lanes = tuple(c.contiguous() for c in p)
+    dev = p.x.device
+    return EdPoint(*kernels.ed_ladder(
+        FE, lanes, packed.contiguous(), nbits, FE.constant(D2, dev)[None],
+        FE.one(dev)[None].contiguous()))
+
+
+def scalar_mul_bits(p: EdPoint, bits: Tensor) -> EdPoint:
+    """p_i · k_i for (B, n) coordinates and (B, nbits) MSB-first bits:
+    the ladder of scalar_mul_steps, in one launch on CUDA tensors."""
+    return ladder(p, pack_bits(bits), bits.shape[-1])
 
 
 def tree_sum(p: EdPoint) -> EdPoint:

@@ -89,19 +89,21 @@ def max_width(spec) -> int:
 
 #: Threads per lane ("lane group") of each kernel, fixed at build time
 #: (MUL_G in csrc/fq_mul.cu, ADD_G and DBL_G in csrc/g1_point.cu,
-#: TOWER_G in csrc/pairing.cu, ED_G in csrc/ed_point.cu, WP_G in
-#: csrc/wp_point.cu).
+#: TOWER_G in csrc/pairing.cu, ED_ADD_G and ED_LADDER_G in
+#: csrc/ed_point.cu, WP_G in csrc/wp_point.cu).
 FQ_MUL_GROUP = 8
 G1_ADD_GROUP = 16
 G1_DBL_GROUP = 16
 TOWER_GROUP = 16
 ED_ADD_GROUP = 8
-WP_ADD_GROUP = 8
+ED_LADDER_GROUP = 16
+WP_GROUP = 16
 #: Threads of a pairing kernel's block (TOWER_THREADS in csrc/pairing.cu):
 #: its programs are built for TOWER_THREADS // 32 warps.
 TOWER_THREADS = 512
 GROUP_SIZES = tuple(sorted({FQ_MUL_GROUP, G1_ADD_GROUP, G1_DBL_GROUP,
-                            TOWER_GROUP, ED_ADD_GROUP, WP_ADD_GROUP}))
+                            TOWER_GROUP, ED_ADD_GROUP, ED_LADDER_GROUP,
+                            WP_GROUP}))
 
 
 class Kernel:
@@ -183,8 +185,19 @@ SECP_DBL = Kernel(
 WP_ADD_GENERAL = Kernel(
     "wp_add_general", "consensus_overlord_tpu_torch/csrc/wp_point.cu",
     "consensus_overlord_tpu/crypto/ecdsa_tpu.py:224", "sm2_fq")
-CURVE_KERNELS = (FQ_MUL_ED25519, ED_ADD, FQ_MUL_SECP256K1, SECP_ADD,
-                 SECP_DBL, FQ_MUL_SM2, WP_ADD_GENERAL)
+# The scalar-multiplication ladders in one launch each, on the bodies of
+# ed_add and wp_add_general: Ed25519's scalar_mul_bits (the scan inside
+# _ed_msm_is_identity) and SM2's dual_scalar_mul_bits (the scan inside
+# _verify_kernel("sm2")).
+ED_LADDER = Kernel(
+    "ed_ladder", "consensus_overlord_tpu_torch/csrc/ed_point.cu",
+    "consensus_overlord_tpu/crypto/ed25519_tpu.py:60", "F_ed25519")
+WP_DUAL_LADDER = Kernel(
+    "wp_dual_ladder", "consensus_overlord_tpu_torch/csrc/wp_point.cu",
+    "consensus_overlord_tpu/crypto/ecdsa_tpu.py:224", "sm2_fq")
+CURVE_KERNELS = (FQ_MUL_ED25519, ED_ADD, ED_LADDER, FQ_MUL_SECP256K1,
+                 SECP_ADD, SECP_DBL, FQ_MUL_SM2, WP_ADD_GENERAL,
+                 WP_DUAL_LADDER)
 KERNELS = BLS_KERNELS + CURVE_KERNELS
 _FQ_MUL_OF = {k.spec: k for k in (FQ_MUL, FQ_MUL_ED25519, FQ_MUL_SECP256K1,
                                   FQ_MUL_SM2)}
@@ -361,9 +374,13 @@ _LIBS = {
     }),
     "ed_point": ("ed_point.cu", {
         "ed_add_launch": [_VP] * 13 + [_I, _I, _VP],
+        "ed_ladder_launch": [_VP] * 11 + [_I, _I, _I, _VP],
+        "ed_point_occupancy": [_I, _VP, _VP],
     }),
     "wp_point": ("wp_point.cu", {
         "wp_add_general_launch": [_VP] * 10 + [_I, _I, _VP],
+        "wp_dual_ladder_launch": [_VP] * 12 + [_I, _I, _I, _VP],
+        "wp_point_occupancy": [_I, _VP, _VP],
     }),
 }
 _HEADERS = ("fq_field.cuh", "fq_group.cuh")
@@ -620,17 +637,23 @@ def fq_mul(spec, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def _check_like(name: str, what: str, tensors: Sequence[torch.Tensor],
+                shape: Tuple[int, ...], dev: torch.device) -> None:
+    """Each tensor must be contiguous int32 of `shape` on `dev`."""
+    for t in tensors:
+        if t.device != dev or t.dtype != torch.int32 or \
+                tuple(t.shape) != tuple(shape) or not t.is_contiguous():
+            raise ValueError(f"{name}: {what} must be contiguous "
+                             f"{tuple(shape)} int32 on {dev}")
+
+
 def _point_launch(kernel: Kernel, lib: str, fn: str, spec, ins,
                   nout: int, consts=()) -> Tuple[torch.Tensor, ...]:
     """Launch a point kernel over (B, n) coordinates `ins` (then the
     constant rows `consts`, each (1, n)) into `nout` new coordinates."""
     batch = _check(kernel.name, ins, spec.n)
     dev = ins[0].device
-    for c in consts:
-        if c.device != dev or c.dtype != torch.int32 or \
-                c.shape != (1, spec.n) or not c.is_contiguous():
-            raise ValueError(f"{kernel.name}: constant rows must be "
-                             f"contiguous (1, {spec.n}) int32 on {dev}")
+    _check_like(kernel.name, "constant rows", consts, (1, spec.n), dev)
     handle = _prepare(lib, spec, dev)
     outs = tuple(torch.empty_like(ins[0]) for _ in range(nout))
     if batch:
@@ -680,6 +703,99 @@ def wp_add_general(spec, p: Tuple[torch.Tensor, ...],
     return _point_launch(WP_ADD_GENERAL, "wp_point",
                          "wp_add_general_launch", spec, tuple(p) + tuple(q),
                          3, consts=(b3,))
+
+
+def packed_words(count: int, per_word: int) -> int:
+    """int32 words a lane's packed ladder input takes: `count` bits (32 a
+    word) or window digits (4 a word)."""
+    return -(-count // per_word)
+
+
+def ed_ladder(spec, p: Tuple[torch.Tensor, ...], bits: torch.Tensor,
+              nbits: int, d2: torch.Tensor,
+              one: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """p_i · k_i for every lane in one launch (csrc/ed_point.cu
+    ed_ladder_kernel): p extended (x, y, z, t), each (B, n) int32; bits
+    (B, packed_words(nbits, 32)) int32, k_i's nbits MSB-first bits, bit i
+    of word i // 32 at position 31 − i % 32 (ops/edwards.py pack_bits);
+    d2 and one the (1, n) limb rows of 2d and 1.  Bit-identical to the
+    plain ops/edwards.py ladder_plain."""
+    batch = _check(ED_LADDER.name, p, spec.n)
+    dev = p[0].device
+    _check_like(ED_LADDER.name, "constant rows", (d2, one), (1, spec.n), dev)
+    _check_like(ED_LADDER.name, "packed bits", (bits,),
+                (batch, packed_words(nbits, 32)), dev)
+    handle = _prepare("ed_point", spec, dev)
+    outs = tuple(torch.empty_like(p[0]) for _ in range(4))
+    if batch:
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        _raise_if(handle, ED_LADDER.name, handle.ed_ladder_launch(
+            *(t.data_ptr() for t in outs + tuple(p) + (bits, d2, one)),
+            batch, nbits, dev.index, stream))
+        ED_LADDER.count(batch)
+    return outs
+
+
+#: The window of wp_dual_ladder's digits, and the rows of the tables it
+#: reads (WP_TABLE in csrc/wp_point.cu).
+LADDER_WINDOW = 4
+LADDER_TABLE = 1 << LADDER_WINDOW
+
+
+def wp_dual_ladder(spec, tq: Tuple[torch.Tensor, ...],
+                   tg: Tuple[torch.Tensor, ...], digits: torch.Tensor,
+                   windows: int, b3: torch.Tensor,
+                   one: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """u1·G + u2·Q for every lane in one launch (csrc/wp_point.cu
+    wp_dual_ladder_kernel, window 4): tq the lanes' Q tables, each
+    coordinate (16, B, n) int32; tg G's table, each (16, n); digits
+    (B, packed_words(windows, 4)) int32, window j's byte (G's digit
+    << 4 | Q's digit) at bits 8·(j % 4) of word j // 4
+    (ops/weierstrass.py pack_digits); b3 and one the (1, n) rows of 3b
+    and 1.  Bit-identical to the plain ops/weierstrass.py
+    dual_ladder_plain."""
+    name = WP_DUAL_LADDER.name
+    dev = tq[0].device
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: operands must be CUDA tensors, got {dev}")
+    batch = tq[0].shape[1] if tq[0].dim() == 3 else 0
+    _check_like(name, "Q tables", tq, (LADDER_TABLE, batch, spec.n), dev)
+    _check_like(name, "G tables", tg, (LADDER_TABLE, spec.n), dev)
+    _check_like(name, "constant rows", (b3, one), (1, spec.n), dev)
+    _check_like(name, "packed digits", (digits,),
+                (batch, packed_words(windows, 4)), dev)
+    handle = _prepare("wp_point", spec, dev)
+    outs = tuple(torch.empty((batch, spec.n), dtype=torch.int32, device=dev)
+                 for _ in range(3))
+    if batch:
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        _raise_if(handle, name, handle.wp_dual_ladder_launch(
+            *(t.data_ptr() for t in outs + tuple(tq) + tuple(tg)
+              + (digits, b3, one)), batch, windows, dev.index, stream))
+        WP_DUAL_LADDER.count(batch)
+    return outs
+
+
+#: Kernels whose library reports its occupancy: name → (library, the
+#: kernel's index in `<library>_occupancy`).
+_OCCUPANCY = {"ed_add": ("ed_point", 0), "ed_ladder": ("ed_point", 1),
+              "wp_add_general": ("wp_point", 0),
+              "wp_dual_ladder": ("wp_point", 1)}
+
+
+def resident_warps(name: str, spec, device: torch.device) -> int:
+    """Warps of the named kernel an SM holds at once (the CUDA occupancy
+    calculator on its registers, shared memory and block size): a
+    measuring aid, no launch."""
+    lib, index = _OCCUPANCY[name]
+    if device.index is None:
+        device = torch.device(device.type, torch.cuda.current_device())
+    handle = _prepare(lib, spec, device)
+    threads, blocks = ctypes.c_int(), ctypes.c_int()
+    _raise_if(handle, f"{name} occupancy", getattr(
+        handle, f"{lib}_occupancy")(index, ctypes.byref(threads),
+                                    ctypes.byref(blocks)))
+    return blocks.value * threads.value // 32
 
 
 # -- the pairing kernels (csrc/pairing.cu) ------------------------------------

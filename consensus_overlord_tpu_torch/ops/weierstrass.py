@@ -17,7 +17,12 @@ JAX package's field-op sequences so every output is bit-identical:
 verification equations: one shared doubling run and two windowed table
 adds per window.  The fixed base's table is built at batch 1 and read
 by index; each lane keeps its own table for Q, read by a gather (the
-same values as the JAX package's one-hot contraction).
+same values as the JAX package's one-hot contraction).  For secp256k1
+every step is a launch (``dual_scalar_mul_steps``); for SM2 the ladder
+after the table builds is ``dual_ladder``: one launch of csrc/
+wp_point.cu's wp_dual_ladder_kernel on CUDA tensors, on CPU tensors
+``dual_ladder_plain``, the same loop over ``SM2.add_plain`` fed from the
+packed digits (``pack_digits``).
 """
 
 from __future__ import annotations
@@ -27,7 +32,7 @@ from typing import Callable
 import torch
 
 from . import kernels
-from .curve import CurveOps, Point, _stack
+from .curve import CurveOps, Point, _stack, int32_words
 from .field import SECP256K1_FQ, SM2_FQ, PlainField, Tensor
 
 # -- fields and curve constants ------------------------------------------------
@@ -188,31 +193,114 @@ SECP = SecpOps()
 SM2 = Sm2Ops()
 
 
-def dual_scalar_mul_bits(ops: CurveOps, g: Point, g_bits: Tensor,
-                         q: Point, q_bits: Tensor, window: int = 4) -> Point:
+def _window_digits(bits: Tensor, window: int) -> Tensor:
+    """(B, nbits) MSB-first bits → (nbits / window, B) int64 digits."""
+    nbits = bits.shape[-1]
+    weights = torch.tensor([1 << (window - 1 - i) for i in range(window)],
+                           dtype=torch.int32, device=bits.device)
+    d = (bits.reshape(bits.shape[:-1] + (nbits // window, window))
+         * weights).sum(-1)
+    return torch.movedim(d, -1, 0).long()
+
+
+def _tables(ops: CurveOps, g: Point, q: Point, window: int):
+    """G's table at batch 1, (2^w, 1, n), read by index, and the lanes'
+    Q tables, (2^w, B, n), read by a gather: 2 · (2^w − 2) adds."""
+    return (_stack(ops._build_table(g, 1 << window)),
+            _stack(ops._build_table(q, 1 << window)))
+
+
+def _check_bits(g_bits: Tensor, q_bits: Tensor, window: int) -> int:
+    nbits = g_bits.shape[-1]
+    if nbits != q_bits.shape[-1] or nbits % window:
+        raise ValueError("bit lengths must agree and divide by the window")
+    return nbits
+
+
+def _dual_steps(ops: CurveOps, tg: Point, tq: Point, dgs: Tensor,
+                dqs: Tensor, window: int, add, dbl) -> Point:
+    """The JAX scan's loop: per window `window` doublings, then the add of
+    G's row, then the add of the lane's Q row."""
+    acc = ops.infinity_like(tq.x[0])
+    for dg, dq in zip(dgs, dqs):
+        for _ in range(window):
+            acc = dbl(acc)
+        acc = add(acc, Point(tg.x[dg, 0], tg.y[dg, 0], tg.z[dg, 0]))
+        acc = add(acc, ops._table_lookup(tq, dq))
+    return acc
+
+
+def dual_scalar_mul_steps(ops: CurveOps, g: Point, g_bits: Tensor,
+                          q: Point, q_bits: Tensor,
+                          window: int = 4) -> Point:
     """Per-lane u1·G + u2·Q with one shared doubling run (Shamir's trick):
-    each window does `window` doublings and two table adds.
+    each window does `window` doublings and two table adds, each a
+    launch of ops.dbl / ops.add on CUDA tensors.
 
     `g` is one base point of batch shape (1, n), its table read by index;
     q holds the (B, n) lanes; both bit tensors are (B, nbits) MSB-first,
     nbits divisible by `window`."""
-    nbits = g_bits.shape[-1]
-    if nbits != q_bits.shape[-1] or nbits % window:
-        raise ValueError("bit lengths must agree and divide by the window")
-    tg = _stack(ops._build_table(g, 1 << window))  # (2^w, 1, n)
-    tq = _stack(ops._build_table(q, 1 << window))  # (2^w, B, n)
-    weights = torch.tensor([1 << (window - 1 - i) for i in range(window)],
-                           dtype=torch.int32, device=q_bits.device)
+    _check_bits(g_bits, q_bits, window)
+    tg, tq = _tables(ops, g, q, window)
+    return _dual_steps(ops, tg, tq, _window_digits(g_bits, window),
+                       _window_digits(q_bits, window), window, ops.add,
+                       ops.dbl)
 
-    def digits(bits):  # (nbits / w, B) int64
-        d = (bits.reshape(bits.shape[:-1] + (nbits // window, window))
-             * weights).sum(-1)
-        return torch.movedim(d, -1, 0).long()
 
-    acc = ops.infinity_like(q.x)
-    for dg, dq in zip(digits(g_bits), digits(q_bits)):
-        for _ in range(window):
-            acc = ops.dbl(acc)
-        acc = ops.add(acc, Point(tg.x[dg, 0], tg.y[dg, 0], tg.z[dg, 0]))
-        acc = ops.add(acc, ops._table_lookup(tq, dq))
-    return acc
+def pack_digits(dgs: Tensor, dqs: Tensor) -> Tensor:
+    """(windows, B) digits of G and Q, each in [0, 16) → (B, ceil(windows
+    / 4)) int32: window j's byte dg << 4 | dq at bits 8·(j % 4) of word
+    j // 4, the ladder kernel's layout (64 bytes a lane at 64 windows)."""
+    windows, b = dgs.shape
+    words = kernels.packed_words(windows, 4)
+    wide = torch.zeros((b, words * 4), dtype=torch.int64, device=dgs.device)
+    wide[:, :windows] = (dgs.long() << 4 | dqs.long()).T
+    shifts = torch.arange(0, 32, 8, device=dgs.device)
+    return int32_words((wide.view(b, words, 4) << shifts).sum(-1))
+
+
+def unpack_digits(packed: Tensor, windows: int):
+    """pack_digits' inverse: the (windows, B) int64 digits of G and Q."""
+    shifts = torch.arange(0, 32, 8, device=packed.device)
+    by = (packed.long()[..., None] >> shifts) & 0xff
+    by = by.reshape(packed.shape[0], -1)[:, :windows].T
+    return by >> 4, by & 15
+
+
+def dual_ladder_plain(tg: Point, tq: Point, packed: Tensor,
+                      windows: int) -> Point:
+    """The plain version of the wp_dual_ladder kernel: the JAX scan's loop
+    over SM2.add_plain, on any device, launching no kernel."""
+    dgs, dqs = unpack_digits(packed, windows)
+    return _dual_steps(SM2, tg, tq, dgs, dqs, kernels.LADDER_WINDOW,
+                       SM2.add_plain, lambda p: SM2.add_plain(p, p))
+
+
+def dual_ladder(tg: Point, tq: Point, packed: Tensor,
+                windows: int) -> Point:
+    """SM2's u1·G + u2·Q from the window-4 tables and pack_digits' words:
+    the wp_dual_ladder kernel on CUDA tensors (one launch),
+    dual_ladder_plain on CPU tensors; the two are bit-identical."""
+    dev = tq.x.device
+    if dev.type == "cpu":
+        return dual_ladder_plain(tg, tq, packed, windows)
+    return Point(*kernels.wp_dual_ladder(
+        FQ_SM2, tuple(c.contiguous() for c in tq),
+        tuple(c[:, 0].contiguous() for c in tg), packed.contiguous(),
+        windows, FQ_SM2.constant(SM2_B3, dev)[None],
+        FQ_SM2.one(dev)[None].contiguous()))
+
+
+def dual_scalar_mul_bits(ops: CurveOps, g: Point, g_bits: Tensor,
+                         q: Point, q_bits: Tensor) -> Point:
+    """dual_scalar_mul_steps' u1·G + u2·Q at window 4 (the JAX package's
+    default): secp256k1 runs the steps; SM2's ladder after the table
+    builds is dual_ladder, one launch on CUDA tensors."""
+    window = kernels.LADDER_WINDOW
+    if ops is not SM2:
+        return dual_scalar_mul_steps(ops, g, g_bits, q, q_bits, window)
+    nbits = _check_bits(g_bits, q_bits, window)
+    tg, tq = _tables(ops, g, q, window)
+    return dual_ladder(tg, tq, pack_digits(_window_digits(g_bits, window),
+                                           _window_digits(q_bits, window)),
+                       nbits // window)

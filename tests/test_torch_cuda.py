@@ -456,6 +456,51 @@ def test_secp_and_sm2_kernels_match_plain(cuda, batch):
                        zip(ops.dbl(p), ops.dbl_plain(p)))
 
 
+@pytest.mark.parametrize("batch", RAGGED)
+def test_ed_ladder_matches_plain_and_the_steps(cuda, batch):
+    """ed_ladder (one launch) against ladder_plain and against the
+    step-by-step route (one ed_add launch an add), at 64 bits: two packed
+    words a lane."""
+    from consensus_overlord_tpu_torch.ops import edwards as ed
+    rng = np.random.default_rng(700 + batch)
+    p = ed.EdPoint(*(_loose26(rng, ed.FE, batch).to(cuda) for _ in range(4)))
+    bits = torch.from_numpy(rng.integers(0, 2, size=(batch, 64),
+                                         dtype=np.int32)).to(cuda)
+    packed = ed.pack_bits(bits)
+    before = kernels.ED_LADDER.launches
+    got = ed.scalar_mul_bits(p, bits)
+    assert kernels.ED_LADDER.launches == before + 1
+    assert all(torch.equal(a, b) for a, b in
+               zip(got, ed.ladder_plain(p, packed, 64)))
+    assert all(torch.equal(a, b) for a, b in
+               zip(got, ed.scalar_mul_steps(p, bits)))
+
+
+@pytest.mark.parametrize("batch", RAGGED)
+def test_wp_dual_ladder_matches_plain_and_the_steps(cuda, batch):
+    """wp_dual_ladder (one launch after the table builds) against
+    dual_ladder_plain and the step-by-step route, at 64 bits (16
+    windows), with SM2's base point as G and loose limbs as Q."""
+    from consensus_overlord_tpu_torch.ops import weierstrass as w
+    rng = np.random.default_rng(800 + batch)
+    f = w.FQ_SM2
+    g = w.SM2.from_affine(f.constant(w.SM2_GX, cuda)[None],
+                          f.constant(w.SM2_GY, cuda)[None])
+    q = w.Point(*(_loose26(rng, f, batch).to(cuda) for _ in range(3)))
+    u1, u2 = (torch.from_numpy(rng.integers(0, 2, size=(batch, 64),
+                                            dtype=np.int32)).to(cuda)
+              for _ in range(2))
+    before = kernels.WP_DUAL_LADDER.launches
+    got = w.dual_scalar_mul_bits(w.SM2, g, u1, q, u2)
+    assert kernels.WP_DUAL_LADDER.launches == before + 1
+    tg, tq = w._tables(w.SM2, g, q, 4)
+    packed = w.pack_digits(w._window_digits(u1, 4), w._window_digits(u2, 4))
+    assert all(torch.equal(a, b) for a, b in
+               zip(got, w.dual_ladder_plain(tg, tq, packed, 16)))
+    assert all(torch.equal(a, b) for a, b in
+               zip(got, w.dual_scalar_mul_steps(w.SM2, g, u1, q, u2)))
+
+
 def test_curve_providers_on_the_card_match_the_host_rule(cuda):
     """Each provider's verify_batch on the card against its own host rule
     on a batch with a wrong signer and a malformed lane."""

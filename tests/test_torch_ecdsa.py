@@ -9,6 +9,7 @@ for byte, the providers' verdicts on adversarial batches, and the
 pubkey cache carried over from a JAX provider
 (convert.ecdsa_pubkeys_from_jax)."""
 
+import functools
 import hashlib
 
 import jax.numpy as jnp
@@ -118,6 +119,7 @@ def test_keys_and_signatures_equal_the_jax_providers(curve):
         assert port.sign(MSG) == ref.sign(MSG)
 
 
+@functools.lru_cache(maxsize=None)
 def _adversarial_batch(curve):
     """Eight lanes: valid ones, a wrong signer, a wrong hash, r = 0, an
     undecodable voter, and the scheme's own rule (secp256k1: high s;
@@ -135,7 +137,7 @@ def _adversarial_batch(curve):
     s = int.from_bytes(sigs[5][32:], "big")
     s_bad = n - s if curve == "secp256k1" else n - r
     sigs[5] = sigs[5][:32] + s_bad.to_bytes(32, "big")
-    return sigs, pks
+    return tuple(sigs), tuple(pks)
 
 
 @pytest.mark.parametrize("curve", sorted(CURVES))

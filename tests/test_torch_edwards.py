@@ -7,6 +7,7 @@ adversarial batches.  The batch relation (the JAX jit
 _ed_msm_is_identity) is held against the host oracle on fixed bits;
 its CPU compile is not worth the suite's time."""
 
+import functools
 import hashlib
 import random
 
@@ -148,6 +149,7 @@ def test_keys_and_signatures_equal_the_jax_providers():
         assert port.sign(MSG) == ref.sign(MSG) == jed.host_sign(seed, MSG)
 
 
+@functools.lru_cache(maxsize=None)
 def _adversarial_batch():
     """Eight lanes: valid, a wrong signer, s ≥ L, R with y ≥ p, an
     undecodable R, a torsion component in R (accepted by the cofactored
@@ -174,7 +176,7 @@ def _adversarial_batch():
         ed._base_mul(keys[6][0]), t)))
     sigs[6] = sign_with(6, 999, ed._base_mul(999), pks[6])
     sigs[7] = sigs[7][:63]
-    return sigs, pks
+    return tuple(sigs), tuple(pks)
 
 
 def test_cofactored_oracle_gives_the_jax_verdicts():
