@@ -25,7 +25,16 @@ calls:
   qc_verify    verify_aggregated_signature of that aggregate: True, and
                False for a wrong hash and for a swapped voter, each from
                the device pairing (g2_sum_rows, then miller_product and
-               final_exp) with no host-oracle pairing.
+               final_exp) with no host-oracle pairing;
+  g2_tables    CudaBlsCrypto(g2_table_msm=True) over the same validators:
+               update_pubkeys with the window-table build (seconds,
+               table bytes, peak device memory), warm single-hash and
+               3-hash rounds (every lane True, the ladder provider's
+               verdicts, no G2 ladder launched) and the bad-lane batches
+               against CpuBlsCrypto.
+
+Every G2 add and doubling of these phases (the ladders, the tree sums,
+the pubkey subgroup check, the tables) is one launch of csrc/g2_point.cu.
 
 Every batch pairs on the card (device pairing is on by default there):
 the Miller product and the final exponentiation of csrc/pairing.cu.
@@ -117,7 +126,9 @@ integer arithmetic, torch.equal) and timed with CUDA events beside its
 plain version and the least time the card could take for the same work:
 the field and G1 kernels at B = 8192 and at their most frequent and
 lane-heaviest launch sizes in a warm round (g1_add at every size of the
-round); the pairing kernels (phase pairing_kernels) on seeded loose
+round); the G2 kernels (phase g2_kernels) at every size of the warm
+round and at the lane-heaviest launch of the 3-hash round and of each
+g2_tables call, with registers, spills and resident warps; the pairing kernels (phase pairing_kernels) on seeded loose
 limbs at 1, 2 and 5 pairs, the Fq12 multiply at 1, 2, 4 and 5 lanes,
 the final exponentiation at 1 and 3, fq_inv (final_exp_kernel on the
 fq_inv12 program: FieldSpec.inv on the card) at 1, 12, 64 and 8192
@@ -298,7 +309,16 @@ def lane_ops(spec) -> dict:
     g1_dbl = _ops((8, f["mul"]), (2, f["add"]), (1, f["sub"]),
                   (1, f["small8"]), (1, f["small12"]), (1, f["small3"]),
                   (1, f["small2"]))
-    out = {"fq_mul": f["mul"], "g1_add": g1_add, "g1_dbl": g1_dbl}
+    # G2 over Fq2: each Fq2 product three Fq products, two adds before
+    # (a0 + a1, b0 + b1), an add and two subs after; 3b = 12(1 + u) a sub,
+    # an add and two multiples by 12 (csrc/g2_point.cu).
+    g2_add = _ops((36, f["mul"]), (62, f["add"]), (36, f["sub"]),
+                  (2, f["small3"]), (4, f["small12"]))
+    g2_dbl = _ops((24, f["mul"]), (29, f["add"]), (19, f["sub"]),
+                  (2, f["small8"]), (2, f["small12"]), (2, f["small3"]),
+                  (2, f["small2"]))
+    out = {"fq_mul": f["mul"], "g1_add": g1_add, "g1_dbl": g1_dbl,
+           "g2_add": g2_add, "g2_dbl": g2_dbl}
     for name in PAIRING:
         by_kind = tower_program.program(name, spec).stats["by_kind"]
         out[name] = _ops(*((c, f[k]) for k, c in by_kind.items()))
@@ -400,6 +420,106 @@ def kernel_checks(torch, launches: dict, operands, card: dict,
             dev.Point(*(c[:1] for c in dev.G1.add(p, q))))[0]:
         fail("g1_add disagrees with the oracle")
     return rows, sized
+
+
+#: Above this many lanes a G2 kernel is held against its plain version on
+#: its first and last G2_PLAIN_SLICE lanes (the plain version's outer
+#: products take about 110 KB a lane).
+G2_PLAIN_MAX = 24576
+G2_PLAIN_SLICE = 8192
+
+
+def g2_operands(torch, prov):
+    """G2 operands from the provider's device pubkey cache (the
+    fixtures' keys as g2_validate left them): P its first LANES rows, Q
+    the same rows reversed, with an identity in P's fourth-last lane and
+    Q's third-last, and P + P and P + (−P) in the last two lanes."""
+    from consensus_overlord_tpu_torch.ops import bls12381_groups as dev
+
+    p = dev.Point(*(c[:LANES].clone() for c in prov._pk_device()))
+    q = dev.Point(*(c.flip(0) for c in p))
+    inf = dev.G2.infinity_like(p.x[:1])
+    neg = dev.G2.neg(dev.Point(*(c[-1:] for c in p)))
+    for cp, cq, ci, cn in zip(p, q, inf, neg):
+        cp[-4] = ci[0]
+        cq[-3] = ci[0]
+        cq[-2] = cp[-2]
+        cq[-1] = cn[0]
+    return p, q
+
+
+def g2_kernel_checks(torch, kernels, launches: dict, card: dict, operands,
+                     sizes: dict, ptxas: dict, pk_aff):
+    """g2_add and g2_dbl vs their plain versions on the card (tolerance
+    0, torch.equal), timed with CUDA events beside the plain version and
+    the bound, at B = LANES for the kernels line and at every lane count
+    of `sizes` (operands tiled), with registers, spills and resident
+    warps; and g2_add's first lane against the oracle."""
+    from consensus_overlord_tpu_torch.crypto import bls12381 as oracle
+    from consensus_overlord_tpu_torch.ops import bls12381_groups as dev
+
+    p, q = operands
+    ops = lane_ops(dev.FQ)
+    lane_bytes = {"g2_add": 18 * dev.FQ.n * 4, "g2_dbl": 12 * dev.FQ.n * 4}
+
+    def measure(name: str, lanes: int) -> dict:
+        idx = torch.arange(lanes, device="cuda") % LANES
+        ps = dev.Point(*(c[idx] for c in p))
+        qs = dev.Point(*(c[idx] for c in q))
+        if name == "g2_add":
+            run = lambda: dev.G2.add(ps, qs)  # noqa: E731
+            plain = lambda a, b: dev.G2.add_plain(a, b)  # noqa: E731
+        else:
+            run = lambda: dev.G2.dbl(ps)  # noqa: E731
+            plain = lambda a, b: dev.G2.dbl_plain(a)  # noqa: E731
+        got = run()
+        cuts = ([slice(0, lanes)] if lanes <= G2_PLAIN_MAX else
+                [slice(0, G2_PLAIN_SLICE), slice(lanes - G2_PLAIN_SLICE,
+                                                 lanes)])
+        err = 0
+        for cut in cuts:
+            a, b = (dev.Point(*(c[cut] for c in pt)) for pt in (ps, qs))
+            want = plain(a, b)
+            if not all(torch.equal(g[cut], w) for g, w in zip(got, want)):
+                fail(f"{name} differs from its plain version at B = {lanes}")
+            err = max([err] + [int((g[cut].long() - w.long()).abs().max())
+                               for g, w in zip(got, want)])
+        a, b = (dev.Point(*(c[cuts[0]] for c in pt)) for pt in (ps, qs))
+        bound_ms, bound_by = bound(ops[name], lanes, lane_bytes[name] * lanes,
+                                   card["clock_hz"])
+        ms = time_ms(torch, run, 100, card["clock_hz"])
+        return {"max_abs_err": err, "ms": ms,
+                "plain_ms": time_ms(torch, lambda: plain(a, b), 10,
+                                    card["clock_hz"]),
+                "bound_ms": bound_ms, "bound_by": bound_by,
+                "lanes": lanes, "plain_lanes": cuts[0].stop - cuts[0].start,
+                "time_over_bound": ms / bound_ms}
+
+    got = dev.g2_to_oracle(dev.Point(*(c[:1] for c in dev.G2.add(p, q))))
+    if got != [oracle.g2_add(pk_aff[0], pk_aff[LANES - 1])]:
+        fail("g2_add disagrees with the oracle")
+    rows, phase = [], {"phase": "g2_kernels", "kernels": []}
+    for k in (kernels.G2_ADD, kernels.G2_DBL):
+        info = ptxas.get(k.name + "_kernel", {})
+        if info.get("spill_stores", 1) or info.get("spill_loads", 1):
+            fail(f"{k.name}: spills or missing from the ptxas report")
+        warps = kernels.resident_warps(k.name, dev.FQ, torch.device("cuda"))
+        for lanes in sorted(set(sizes[k.name]) | {LANES}):
+            m = measure(k.name, lanes)
+            phase["kernels"].append(
+                {"name": k.name, **m, "registers": info.get("registers"),
+                 "spill_stores": info["spill_stores"],
+                 "spill_loads": info["spill_loads"],
+                 "resident_warps": warps})
+            if lanes == LANES:
+                rows.append({"name": k.name, "route": k.route,
+                             "source": k.source, "replaces": k.replaces,
+                             "launches": launches[k.name],
+                             **{key: m[key] for key in (
+                                 "max_abs_err", "ms", "plain_ms", "bound_ms",
+                                 "bound_by")},
+                             "library_ms": None, "lanes": lanes})
+    return rows, phase
 
 
 def pairing_checks(torch, launches: dict, per_flush: dict, card: dict,
@@ -648,6 +768,7 @@ def crosscheck(prov, s0, sigs, h, pks) -> dict:
 
 
 _PTXAS_NAME = re.compile(r"(fq_mul_kernel|g1_dbl_kernel|g1_add_kernel|"
+                         r"g2_dbl_kernel|g2_add_kernel|"
                          r"miller_product_kernel|fq12_mul_kernel|"
                          r"final_exp_kernel|ed_add_kernel|ed_ladder_kernel|"
                          r"wp_add_general_kernel|wp_dual_ladder_kernel)")
@@ -706,7 +827,8 @@ def trace_round(torch, prov, sigs, h, pks) -> dict:
     top = sorted(kern, key=lambda e: -e.self_device_time_total)[:6]
     ours = {name: [(e.count, e.self_device_time_total / 1e3)
                    for e in kern if name + "_kernel" in e.key]
-            for name in ("fq_mul", "g1_add", "g1_dbl") + PAIRING}
+            for name in ("fq_mul", "g1_add", "g1_dbl", "g2_add", "g2_dbl")
+            + PAIRING}
     return {"phase": "single_hash_trace", "votes": n, "wall_s": wall,
             "device_busy_s": busy, "device_idle_share": 1 - busy / wall,
             "kernel_launches": sum(e.count for e in kern),
@@ -741,8 +863,8 @@ SIM_LINGER_MS = 50.0
 #: parameter: a height takes the interval plus its work.
 SIM_TIMEOUT_S = 120.0
 #: The kernels every measured height must launch (fq12_mul is reported).
-SIM_KERNELS = ("fq_mul", "g1_add", "g1_dbl", "miller_product", "final_exp",
-               "fq_inv")
+SIM_KERNELS = ("fq_mul", "g1_add", "g1_dbl", "g2_add", "g2_dbl",
+               "miller_product", "final_exp", "fq_inv")
 
 
 #: Upload sizes the pinned_upload phase issues behind queued work: 20 KB
@@ -1134,8 +1256,8 @@ SERVICE_TIMEOUT_S = 120.0
 #: aggregates (fq_mul, g1_add) and every QC verify's device pairing.
 #: Vote batches stay below the service's device threshold (32), so
 #: g1_dbl and fq12_mul are reported, not required.
-SERVICE_KERNELS = ("fq_mul", "g1_add", "miller_product", "final_exp",
-                   "fq_inv")
+SERVICE_KERNELS = ("fq_mul", "g1_add", "g2_add", "miller_product",
+                   "final_exp", "fq_inv")
 #: /statusz sections node 0 must serve.
 SERVICE_SECTIONS = ("crypto", "frontier", "commits", "health")
 
@@ -1668,8 +1790,8 @@ def drive_qc(torch, prov, s0, h, pks, sigs, sync):
         fail(f"qc_verify: {len(host_pairings)} host pairings, "
              f"{len(pairing_ms)} device pairings in {len(cases)} calls")
     for c in calls:
-        idle = [k for k in ("fq_mul", "miller_product", "final_exp",
-                            "fq_inv") if c["launches"][k] == 0]
+        idle = [k for k in ("fq_mul", "g2_add", "miller_product",
+                            "final_exp", "fq_inv") if c["launches"][k] == 0]
         if idle:
             fail(f"qc_verify {c['case']} never launched {idle}")
     rows = torch.tensor([prov._pk.index[v] for v in pks], device=prov.device)
@@ -1798,23 +1920,61 @@ def degraded(prov, s0, h, pks, sigs) -> dict:
 
 
 
+def bad_lane_batches(s0, hashes, pks, sigs):
+    """A 64-lane single-hash batch and a 96-lane 3-hash batch, each
+    (signatures, hashes, voters), carrying wrong signers, malformed
+    encodings, an infinity signature, undecodable and unknown voters,
+    another hash's signature and order-3 components."""
+    from consensus_overlord_tpu_torch.crypto import bls12381 as oracle
+    from consensus_overlord_tpu_torch.crypto.provider import CpuBlsCrypto
+
+    h0 = hashes[0]
+    outsider = CpuBlsCrypto(s0 + len(pks) + 12345)
+    torsion = (0, 2)  # the order-3 point of E(Fq)
+    sb, vb = list(sigs[0][:64]), list(pks[:64])
+    sb[3], sb[4] = sb[4], sb[3]                      # wrong signers
+    sb[7] = b"\x00" * 48                             # no compressed flag
+    sb[8] = b"short"                                 # wrong length
+    sb[11] = bytes([0x9F]) + b"\xff" * 47            # x >= p
+    sb[30] = bytes([0xC0]) + b"\x00" * 47            # infinity
+    vb[13] = b"\x01" * 96                            # undecodable voter
+    vb[17], sb[17] = outsider.pub_key, outsider.sign(h0)  # unknown voter
+    sb[21] = oracle.g1_compress(oracle.g1_add(
+        oracle.g1_decompress(sb[21]), torsion))      # order-3 component
+    hm = [hashes[i % 3] for i in range(96)]
+    sm = [sigs[i % 3][100 + i] for i in range(96)]
+    vm = list(pks[100:196])
+    sm[5] = sigs[1][105]                             # signed another hash
+    sm[40] = oracle.g1_compress(oracle.g1_add(
+        oracle.g1_decompress(sm[40]), torsion))
+    sm[70] = b"\x00" * 48
+    vm[80] = b"\x02" * 96
+    return (sb, [h0] * 64, vb), (sm, hm, vm)
+
+
+def bad_lane_verdicts(cpu, batches):
+    """CpuBlsCrypto's verdicts on bad_lane_batches."""
+    return [[cpu.verify_signature(s, h, v) for s, h, v in zip(*b)]
+            for b in batches]
+
+
 def drive_main_path(prov, s0, hashes, pks, sigs, sync):
     """The main path through the provider's entry points, one JSON line
-    per phase; returns each phase's kernel launches, and its launches by
-    lane count."""
+    per phase; returns each phase's kernel launches, its launches by lane
+    count, and its seconds."""
     from consensus_overlord_tpu_torch.crypto import bls12381 as oracle
     from consensus_overlord_tpu_torch.crypto.provider import CpuBlsCrypto
     from consensus_overlord_tpu_torch.ops import kernels
 
     n = len(pks)
-    phase_counts, phase_sizes = {}, {}
+    phase_counts, phase_sizes, phase_secs = {}, {}, {}
 
     def phase(name, fn):
         before, sizes0 = kernels.counts(), kernels.sizes()
         t = time.perf_counter()
         out = fn()
         sync()
-        secs = time.perf_counter() - t
+        secs = phase_secs[name] = time.perf_counter() - t
         after, sizes1 = kernels.counts(), kernels.sizes()
         phase_counts[name] = {k: after[k] - before[k] for k in after}
         phase_sizes[name] = {k: {b: c - sizes0[k].get(b, 0)
@@ -1850,35 +2010,10 @@ def drive_main_path(prov, s0, hashes, pks, sigs, sync):
 
     # Bad lanes, verdict for verdict against the host oracle provider.
     cpu = CpuBlsCrypto(s0)
-    outsider = CpuBlsCrypto(s0 + n + 12345)
-    torsion = (0, 2)  # the order-3 point of E(Fq)
-    sb, vb = list(sigs[0][:64]), list(pks[:64])
-    sb[3], sb[4] = sb[4], sb[3]                      # wrong signers
-    sb[7] = b"\x00" * 48                             # no compressed flag
-    sb[8] = b"short"                                 # wrong length
-    sb[11] = bytes([0x9F]) + b"\xff" * 47            # x >= p
-    sb[30] = bytes([0xC0]) + b"\x00" * 47            # infinity
-    vb[13] = b"\x01" * 96                            # undecodable voter
-    vb[17], sb[17] = outsider.pub_key, outsider.sign(h0)  # unknown voter
-    sb[21] = oracle.g1_compress(oracle.g1_add(
-        oracle.g1_decompress(sb[21]), torsion))      # order-3 component
-    hm = [hashes[i % 3] for i in range(96)]
-    sm = [sigs[i % 3][100 + i] for i in range(96)]
-    vm = list(pks[100:196])
-    sm[5] = sigs[1][105]                             # signed another hash
-    sm[40] = oracle.g1_compress(oracle.g1_add(
-        oracle.g1_decompress(sm[40]), torsion))
-    sm[70] = b"\x00" * 48
-    vm[80] = b"\x02" * 96
-
-    def bad_batches():
-        return (prov.verify_batch(sb, [h0] * 64, vb),
-                prov.verify_batch(sm, hm, vm))
-
-    (got_s, got_m), secs = phase("bad_lanes", bad_batches)
-    want_s = [cpu.verify_signature(s, h0, v) for s, v in zip(sb, vb)]
-    want_m = [cpu.verify_signature(s, h, v) for s, h, v in zip(sm, hm, vm)]
-    if got_s != want_s or got_m != want_m:
+    batches = bad_lane_batches(s0, hashes, pks, sigs)
+    (got_s, got_m), secs = phase("bad_lanes", lambda: tuple(
+        prov.verify_batch(*b) for b in batches))
+    if [got_s, got_m] != bad_lane_verdicts(cpu, batches):
         fail("bad-lane verdicts differ from CpuBlsCrypto")
     emit({"phase": "bad_lanes", "lanes": [64, 96], "seconds": secs,
           "rejected": [got_s.count(False), got_m.count(False)],
@@ -1897,7 +2032,107 @@ def drive_main_path(prov, s0, hashes, pks, sigs, sync):
           "verifies_per_s": n / secs, "launches": phase_counts["mixed"],
           **provider_health(prov, "mixed")})
 
-    return phase_counts, phase_sizes
+    return phase_counts, phase_sizes, phase_secs
+
+
+def g2_tables(torch, kernels, s0, hashes, pks, sigs, ladder) -> dict:
+    """The G2 table MSM (CudaBlsCrypto(g2_table_msm=True)) over the main
+    path's validators: update_pubkeys with the table build (seconds, the
+    tables' bytes, the peak of device memory), then warm single-hash and
+    3-hash verify_batch (every lane True, each verdict the ladder
+    provider's), and the bad-lane batches against CpuBlsCrypto.  Launch
+    counts are set to 0 just before each call and read just after.
+    `ladder` carries the main path's launches and seconds of the same
+    calls.  Any mismatch, fallback or open breaker fails the run.
+    Returns the phase line and the exact lanes per launch of the build
+    and of each warm call."""
+    from consensus_overlord_tpu_torch.crypto.cuda_provider import (
+        CudaBlsCrypto)
+    from consensus_overlord_tpu_torch.crypto.provider import CpuBlsCrypto
+
+    n = len(pks)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    prov = CudaBlsCrypto(s0, device="cuda", g2_table_msm=True)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t
+
+    (_, build_s), build_launches, build_lanes = _launches_of(
+        kernels, lambda: timed(lambda: prov.update_pubkeys(pks)))
+    exact = {"build": kernels.sizes()}
+    if prov._pk_tab is None:
+        fail("g2_tables: update_pubkeys built no tables")
+    tab_bytes = sum(t.numel() * t.element_size() for t in prov._pk_tab)
+    peak = torch.cuda.max_memory_allocated()
+    h0 = hashes[0]
+    hx = [hashes[i % 3] for i in range(n)]
+    sx = [sigs[i % 3][i] for i in range(n)]
+    calls = {}
+    for name, args in (("single_hash", (sigs[0], [h0] * n, pks)),
+                       ("mixed", (sx, hx, pks))):
+        if prov.verify_batch(*args) != [True] * n:  # cold: first use
+            fail(f"g2_tables {name}: valid votes rejected (cold)")
+        (got, secs), launches, lanes = _launches_of(
+            kernels, lambda: timed(lambda: prov.verify_batch(*args)))
+        exact[name] = kernels.sizes()
+        if got != [True] * n:
+            fail(f"g2_tables {name}: {got.count(False)} valid votes "
+                 "rejected")
+        idle = [k for k in ("fq_mul", "g1_add", "g1_dbl", "g2_add",
+                            "miller_product", "final_exp", "fq_inv")
+                if not launches[k]]
+        if idle or launches["g2_dbl"]:
+            fail(f"g2_tables {name}: idle {idle}, or the G2 ladder ran "
+                 f"({launches['g2_dbl']} g2_dbl launches)")
+        calls[name] = {"seconds": secs, "verifies_per_s": n / secs,
+                       "launches": {k: v for k, v in launches.items() if v},
+                       "launch_lanes": lanes,
+                       "ladder_seconds": ladder["seconds"][name],
+                       "ladder_launches": {
+                           k: v for k, v in ladder["launches"][name].items()
+                           if v}}
+    # The bad batches carry voters the cache has not seen: validating
+    # them changes the cache, which rebuilds the tables (the build's
+    # doublings run over the cache's rows; a ladder's would run over a
+    # batch's lanes).
+    batches = bad_lane_batches(s0, hashes, pks, sigs)
+    rows = int(prov._pk_tab[0].shape[0])
+    (got, bad_s), bad_launches, _ = _launches_of(
+        kernels, lambda: timed(lambda: [prov.verify_batch(*b)
+                                        for b in batches]))
+    ladder_dbl = {b: c for b, c in kernels.sizes()["g2_dbl"].items()
+                  if b != rows}
+    if got != bad_lane_verdicts(CpuBlsCrypto(s0), batches):
+        fail("g2_tables: bad-lane verdicts differ from CpuBlsCrypto")
+    if ladder_dbl or not bad_launches["g2_add"]:
+        fail(f"g2_tables bad_lanes did not take the table path: g2_dbl "
+             f"launches by lanes {ladder_dbl}")
+    status = prov.degraded_status()
+    if not status["g2_table_msm"] or status["calls"]["verify_batch"]["host"]:
+        fail(f"g2_tables: a batch left the table path: {status}")
+    doc = {"phase": "g2_tables", "validators": n,
+           "cache_rows": int(prov._pk_tab[0].shape[0]),
+           "update_pubkeys_s": build_s, "build_launches": {
+               k: v for k, v in build_launches.items() if v},
+           "build_launch_lanes": build_lanes,
+           "table_bytes": tab_bytes,
+           "max_memory_allocated": peak,
+           "memory_before": base, "calls": calls,
+           "bad_lanes": {"lanes": [len(b[0]) for b in batches],
+                         "seconds": bad_s,
+                         "rebuild_g2_dbl": kernels.sizes()["g2_dbl"].get(
+                             rows, 0),
+                         "rejected": [g.count(False) for g in got]},
+           **provider_health(prov, "g2_tables")}
+    del prov
+    torch.cuda.empty_cache()
+    return doc, exact
 
 
 # -- the Ed25519, secp256k1 and SM2 paths -------------------------------------------
@@ -2464,7 +2699,7 @@ def main(argv=None) -> int:
     curve_ptxas = {spec.name: ptxas_report(kernels, spec)
                    for spec in kernels.all_specs()[1:]}
     emit({"phase": "ptxas", "kernels": ptxas, "curve_kernels": curve_ptxas})
-    for name in ("fq_mul", "g1_add", "g1_dbl") + PAIRING:
+    for name in ("fq_mul", "g1_add", "g1_dbl", "g2_add", "g2_dbl") + PAIRING:
         name += "_kernel"
         if name not in ptxas or ptxas[name].get("spill_stores", 1):
             fail(f"{name}: spills or missing from the ptxas report")
@@ -2480,11 +2715,12 @@ def main(argv=None) -> int:
 
     prov = CudaBlsCrypto(s0, device="cuda")
     kernels.reset_counts()
-    phase_counts, phase_sizes = drive_main_path(prov, s0, hashes, pks, sigs,
-                                                torch.cuda.synchronize)
+    phase_counts, phase_sizes, phase_secs = drive_main_path(
+        prov, s0, hashes, pks, sigs, torch.cuda.synchronize)
     totals = kernels.counts()
     every = [k.name for k in kernels.BLS_KERNELS]
-    for name, used in (("pubkeys", ["fq_mul"]), ("single_hash", every),
+    for name, used in (("pubkeys", ["fq_mul", "g2_add", "g2_dbl"]),
+                       ("single_hash", every),
                        ("bad_lanes", every), ("mixed", every)):
         idle = [k for k in used if phase_counts[name][k] == 0]
         if idle:
@@ -2493,6 +2729,10 @@ def main(argv=None) -> int:
                      "mixed": phase_counts["mixed"][k]} for k in PAIRING}
     qc = drive_qc(torch, prov, s0, hashes[0], pks, sigs[0],
                   torch.cuda.synchronize)
+    tables_doc, table_sizes = g2_tables(
+        torch, kernels, s0, hashes, pks, sigs,
+        {"seconds": phase_secs, "launches": phase_counts})
+    emit(tables_doc)
     emit(degraded(prov, s0, hashes[0], pks, sigs[0]))
     emit(pinned_upload(torch, prov, card, sigs[0], hashes[0], pks))
     emit(sim_fleet(torch, kernels, args.seed))
@@ -2530,8 +2770,20 @@ def main(argv=None) -> int:
         torch, kernels, curve_sizes, curve_launches, card, args.seed,
         curve_ptxas)
     emit(curve_phase_doc)
+    # The G2 kernels at every lane count of the warm single-hash round
+    # (the ladder's and the tree's), and at the lane-heaviest launch of
+    # the 3-hash round and of each table-path call.
+    g2_sizes = {}
+    for k in ("g2_add", "g2_dbl"):
+        by = [phase_sizes["mixed"][k]] + [d[k] for d in table_sizes.values()]
+        g2_sizes[k] = set(phase_sizes["single_hash"][k]) | {
+            max(d, key=lambda b: (b * d[b], b)) for d in by if d}
+    g2_rows, g2_phase = g2_kernel_checks(
+        torch, kernels, totals, card, g2_operands(torch, prov), g2_sizes,
+        ptxas, prov._pk.aff)
+    emit(g2_phase)
     emit(trace_round(torch, prov, sigs[0], hashes[0], pks))
-    emit({"kernels": rows + pair_rows + curve_rows})
+    emit({"kernels": rows + g2_rows + pair_rows + curve_rows})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -167,22 +167,46 @@ def _readback(out):
 # Device steps (tensors in, tensors out; every tensor on one device).
 # ---------------------------------------------------------------------------
 
+def _g1_half(x, sign, inf, ok, wpacked):
+    """The G1 half of a verification round: weight unpack, G1 decompress
+    + validate + per-lane subgroup check, and the G1 MSM Σ r_i·S_i.
+    Returns the weight bits, the per-lane validity and the round's first
+    outputs: (ax, ay, ainf) of the aggregate, strict affine, and the
+    validity."""
+    bits = dev.unpack_weight_bits(wpacked)
+    pt, valid = dev.g1_validate_batch(x, sign, inf, ok)
+    ax, ay, ainf = dev.G1.to_affine(dev.G1.msm_bits(pt, bits))
+    return bits, valid, [dev.FQ.strict(ax[0]), dev.FQ.strict(ay[0]),
+                         ainf[0], valid]
+
+
+def _group_bits(bits, valid, gmask):
+    """(B, k, nbits): each lane's weight bits masked by its validity and
+    by the host-computed group membership `gmask` (k, B)."""
+    return bits[:, None] * (valid[:, None] & gmask.t())[..., None].to(
+        bits.dtype)
+
+
+def _g2_outs(gagg, groups: int = 0) -> list:
+    """(gx, gy, ginf), strict affine, of one G2 sum, or of each of
+    `groups` sums of a (1, groups) batch."""
+    gx, gy, ginf = dev.G2.to_affine(gagg)
+    if not groups:
+        return [dev.FQ.strict(gx[0]), dev.FQ.strict(gy[0]), ginf[0]]
+    return [t for g in range(groups) for t in (
+        dev.FQ.strict(gx[0, g]), dev.FQ.strict(gy[0, g]), ginf[0, g])]
+
+
 def verify_round(x, sign, inf, ok, wpacked, rows, pkx, pky, pkz):
-    """One single-hash verification round on the device: weight unpack,
-    G1 decompress + validate + per-lane subgroup check, the G1 MSM
-    Σ r_i·S_i, the pubkey-cache gather, and the G2 MSM Σ r_i·P_i with
+    """One single-hash verification round on the device: the G1 half
+    (_g1_half), the pubkey-cache gather, and the G2 MSM Σ r_i·P_i with
     weights masked by the device-computed validity.  Returns strict
     affine coords of both aggregates plus the per-lane validity:
     (ax, ay, ainf, valid, gx, gy, ginf)."""
-    bits = dev.unpack_weight_bits(wpacked)
-    pt, valid = dev.g1_validate_batch(x, sign, inf, ok)
-    agg = dev.G1.msm_bits(pt, bits)
-    ax, ay, ainf = dev.G1.to_affine(agg)
+    bits, valid, outs = _g1_half(x, sign, inf, ok, wpacked)
     vbits = bits * valid[..., None].to(bits.dtype)
     gagg = dev.G2.msm_bits(dev.gather_rows(rows, pkx, pky, pkz), vbits)
-    gx, gy, ginf = dev.G2.to_affine(gagg)
-    return (dev.FQ.strict(ax[0]), dev.FQ.strict(ay[0]), ainf[0], valid,
-            dev.FQ.strict(gx[0]), dev.FQ.strict(gy[0]), ginf[0])
+    return tuple(outs + _g2_outs(gagg))
 
 
 def verify_round_multi(x, sign, inf, ok, wpacked, rows, gmask,
@@ -193,21 +217,45 @@ def verify_round_multi(x, sign, inf, ok, wpacked, rows, gmask,
     over (B, k) lanes — each group's lanes see exactly the ops of its own
     MSM.  Returns the G1 aggregate, the validity, then (gx, gy, ginf) per
     group."""
-    bits = dev.unpack_weight_bits(wpacked)
-    pt, valid = dev.g1_validate_batch(x, sign, inf, ok)
-    agg = dev.G1.msm_bits(pt, bits)
-    ax, ay, ainf = dev.G1.to_affine(agg)
-    outs = [dev.FQ.strict(ax[0]), dev.FQ.strict(ay[0]), ainf[0], valid]
+    bits, valid, outs = _g1_half(x, sign, inf, ok, wpacked)
     k = gmask.shape[0]
     pk = dev.gather_rows(rows, pkx, pky, pkz)
     pk = Point(*(c[:, None].expand(c.shape[0], k, *c.shape[1:]) for c in pk))
-    vbits = bits[:, None] * (valid[:, None] & gmask.t())[..., None].to(
-        bits.dtype)  # (B, k, nbits)
-    gx, gy, ginf = dev.G2.to_affine(dev.G2.msm_bits(pk, vbits))
-    for g in range(k):
-        outs += [dev.FQ.strict(gx[0, g]), dev.FQ.strict(gy[0, g]),
-                 ginf[0, g]]
-    return tuple(outs)
+    gagg = dev.G2.msm_bits(pk, _group_bits(bits, valid, gmask))
+    return tuple(outs + _g2_outs(gagg, k))
+
+
+def verify_round_tab(x, sign, inf, ok, wpacked, rows, tx, ty, tz):
+    """verify_round with the G2 MSM served from the precomputed per-row
+    window tables (ops/curve.py msm_from_tables, tables from
+    build_g2_tables) instead of the windowed ladder: the round pays
+    gathers and adds only.  The same outputs as verify_round."""
+    bits, valid, outs = _g1_half(x, sign, inf, ok, wpacked)
+    vbits = bits * valid[..., None].to(bits.dtype)
+    gagg = dev.G2.msm_from_tables(Point(tx, ty, tz), rows, vbits)
+    return tuple(outs + _g2_outs(gagg))
+
+
+def verify_round_multi_tab(x, sign, inf, ok, wpacked, rows, gmask,
+                           tx, ty, tz):
+    """verify_round_multi with each group's G2 MSM from the window
+    tables, the k groups as one batch of (B, k) lanes: the gathers, the
+    window tree and the tree sum of each group's column see exactly the
+    ops of that group's own MSM.  The same outputs as
+    verify_round_multi."""
+    bits, valid, outs = _g1_half(x, sign, inf, ok, wpacked)
+    k = gmask.shape[0]
+    gagg = dev.G2.msm_from_tables(Point(tx, ty, tz),
+                                  rows[:, None].expand(-1, k),
+                                  _group_bits(bits, valid, gmask))
+    return tuple(outs + _g2_outs(gagg, k))
+
+
+def build_g2_tables(px, py, pz):
+    """The G2 window tables over the padded device pubkey cache: one
+    16-window × 16-digit multiple set a row (ops/curve.py
+    msm_table_build)."""
+    return tuple(dev.G2.msm_table_build(Point(px, py, pz)))
 
 
 def g2_validate(x, sign, inf, ok):
@@ -250,6 +298,9 @@ class _SingleChipKernels:
 
     verify_round = staticmethod(verify_round)
     verify_round_multi = staticmethod(verify_round_multi)
+    verify_round_tab = staticmethod(verify_round_tab)
+    verify_round_multi_tab = staticmethod(verify_round_multi_tab)
+    build_g2_tables = staticmethod(build_g2_tables)
     g2_validate = staticmethod(g2_validate)
     g1_validate_sum = staticmethod(g1_validate_sum)
     g2_sum_rows = staticmethod(g2_sum_rows)
@@ -346,14 +397,23 @@ class CudaBlsCrypto:
     overruns raises DispatchTimeout — a breaker failure with an exact host
     re-verify when an injected stall held it, else the caller's error.
     None reads CONSENSUS_DISPATCH_DEADLINE_S; <= 0 (the
-    default) turns the watchdog off."""
+    default) turns the watchdog off.
+    g2_table_msm: serve the verify round's G2 MSM from per-row window
+    tables over the device pubkey cache (``build_g2_tables``: 16 windows
+    × 16 digits of every cached key, about 240 KB of device memory a
+    row, 3.9 GB at the 16,384-row rung), rebuilt at the end of every
+    ``update_pubkeys`` that changed the cache, so a round pays gathers
+    and adds only (``verify_round_tab``, ``verify_round_multi_tab``).
+    None reads CONSENSUS_G2_TABLE_MSM (default off; "0", "off" and
+    "false" are off)."""
 
     def __init__(self, private_key: int, common_ref: bytes = b"",
                  device_threshold: int = 32, device="cuda",
                  device_pairing: Optional[bool] = None,
                  qc_device_threshold: Optional[int] = None,
                  breaker: Optional[CircuitBreaker] = None,
-                 dispatch_deadline_s: Optional[float] = None):
+                 dispatch_deadline_s: Optional[float] = None,
+                 g2_table_msm: Optional[bool] = None):
         self.device = torch.device(device)
         if self.device.type == "cuda":
             if not torch.cuda.is_available():
@@ -423,6 +483,14 @@ class CudaBlsCrypto:
         # uploaded once per reconfigure, so per batch only row indices
         # travel to the card.
         self._pk_dev: Optional[Tuple[torch.Tensor, ...]] = None
+        if g2_table_msm is None:
+            g2_table_msm = os.environ.get(
+                "CONSENSUS_G2_TABLE_MSM", "0") not in ("0", "off", "false")
+        self._use_g2_tables = bool(g2_table_msm)
+        #: The G2 window tables over _pk_dev (g2_table_msm): dropped with
+        #: it on every change of the cache, rebuilt at the end of
+        #: update_pubkeys (the reconfigure point).
+        self._pk_tab: Optional[Tuple[torch.Tensor, ...]] = None
 
     # -- observability and the breaker ---------------------------------------
 
@@ -454,7 +522,7 @@ class CudaBlsCrypto:
         doc = self.breaker.status()
         doc["device_pairing"] = self._pairing_on_device
         doc["pairing_host_fallbacks"] = self.pairing_host_fallbacks
-        doc["g2_table_msm"] = False
+        doc["g2_table_msm"] = self._use_g2_tables
         with self._calls_lock:
             doc["calls"] = {p: dict(c) for p, c in self.calls.items()}
             doc["pubkey_updates"] = dict(self.pubkey_updates)
@@ -1048,8 +1116,12 @@ class CudaBlsCrypto:
          pk_ok) = self._host_prep(signatures, voters, n, call)
         t0 = self._observe_phase("prep", t0, call)
         with annotate("cuda_bls.verify_round.dispatch"):
-            out = self._kernels.verify_round(sx, ssign, sinf, sok, wpacked,
-                                             rows, *self._pk_device())
+            if self._use_g2_tables:
+                out = self._kernels.verify_round_tab(
+                    sx, ssign, sinf, sok, wpacked, rows, *self._pk_tables())
+            else:
+                out = self._kernels.verify_round(
+                    sx, ssign, sinf, sok, wpacked, rows, *self._pk_device())
         self._observe_phase("dispatch", t0, call)
         h_pt = oracle.hash_to_g1(h, self._common_ref)
         verdict_dev = None
@@ -1085,9 +1157,14 @@ class CudaBlsCrypto:
             gmask[g, groups[h]] = True
         t0 = self._observe_phase("prep", t0, call)
         with annotate("cuda_bls.verify_round_multi.dispatch"):
-            out = self._kernels.verify_round_multi(
-                sx, ssign, sinf, sok, wpacked, rows, self._to_dev(gmask),
-                *self._pk_device())
+            if self._use_g2_tables:
+                out = self._kernels.verify_round_multi_tab(
+                    sx, ssign, sinf, sok, wpacked, rows, self._to_dev(gmask),
+                    *self._pk_tables())
+            else:
+                out = self._kernels.verify_round_multi(
+                    sx, ssign, sinf, sok, wpacked, rows, self._to_dev(gmask),
+                    *self._pk_device())
         self._observe_phase("dispatch", t0, call)
         lane_hashes = [b""] * n
         for h, idxs in groups.items():
@@ -1228,6 +1305,18 @@ class CudaBlsCrypto:
 
     @_issuing
     def _update_pubkeys(self, voters: List[bytes]) -> None:
+        self._validate_pubkeys(voters)
+        if self._use_g2_tables:
+            # The tables are rebuilt here, at the reconfigure point, so
+            # the first round after it pays gathers only.  A build that
+            # fails with an injected fault stays lazy: the next round
+            # retries it inside its breaker-guarded dispatch.
+            try:
+                self._pk_tables()
+            except Exception as e:  # noqa: BLE001 — see _injected
+                self._device_failed("update_pubkeys", e)
+
+    def _validate_pubkeys(self, voters: List[bytes]) -> None:
         with self._pk_lock:
             fresh = list(dict.fromkeys(v for v in voters
                                        if v not in self._pk.index))
@@ -1266,7 +1355,7 @@ class CudaBlsCrypto:
             self._device_succeeded()
             self._pk.append(fresh, px, py, pz,
                             _g2_oracle_points(ax, ay, ainf, valid), valid)
-            self._pk_dev = None  # the device copy is stale
+            self._pk_dev = self._pk_tab = None  # the device copies are stale
 
     def _count_pubkeys(self, where: str) -> None:
         with self._calls_lock:
@@ -1296,13 +1385,13 @@ class CudaBlsCrypto:
             valid[i] = True
             aff.append(pt)
         self._pk.append(voters, px, py, pz, aff, valid)
-        self._pk_dev = None
+        self._pk_dev = self._pk_tab = None
 
     def load_pubkey_cache(self, cache: PubkeyCache) -> None:
         """Adopt a whole pubkey cache (convert.pubkey_cache_from_jax)."""
         with self._pk_lock:
             self._pk = cache
-            self._pk_dev = None
+            self._pk_dev = self._pk_tab = None
 
     def _pk_device(self) -> Tuple[torch.Tensor, ...]:
         """The device copy of the cache, padded to the capacity ladder."""
@@ -1313,6 +1402,18 @@ class CudaBlsCrypto:
                 self._pk_dev = tuple(self._to_dev(np.pad(a, pad)) for a in
                                      (self._pk.px, self._pk.py, self._pk.pz))
             return self._pk_dev
+
+    def _pk_tables(self) -> Tuple[torch.Tensor, ...]:
+        """The G2 window tables over the device copy of the cache
+        (g2_table_msm), built when the cache changed since the last
+        build.  The device copy's fetch and the staleness check share one
+        _pk_lock section, so a concurrent update_pubkeys cannot leave
+        tables of the old cache cached as fresh."""
+        with self._pk_lock:
+            if self._pk_tab is None:
+                self._pk_tab = self._kernels.build_g2_tables(
+                    *self._pk_device())
+            return self._pk_tab
 
     @_issuing
     def _pk_rows_of(self, voters: Sequence[bytes]) -> np.ndarray:

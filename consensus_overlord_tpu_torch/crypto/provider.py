@@ -74,6 +74,12 @@ class CpuBlsCrypto:
         self._common_ref = common_ref
         self._pk = bls.sk_to_pk(self._sk)
 
+    @classmethod
+    def from_file(cls, path: str, common_ref: bytes = b"") -> "CpuBlsCrypto":
+        """The provider of the hex private key in `path`
+        (load_private_key)."""
+        return cls(load_private_key(path), common_ref)
+
     @property
     def pub_key(self) -> bytes:
         return self._pk

@@ -2,10 +2,10 @@
 
 The counterpart of consensus_overlord_tpu/ops/bls12381_groups.py in its
 CONSENSUS_PALLAS=1 configuration: every Fq multiply goes through the
-fq_mul CUDA kernel, and G1's add and double go through the fused
-csrc/g1_point.cu kernels (on CPU tensors, through their plain versions
-``G1.add_plain`` / ``G1.dbl_plain``).  G2 runs the generic CurveOps over
-Fq2, whose base-field multiplies are the fq_mul kernel.
+fq_mul CUDA kernel, G1's add and double go through the fused
+csrc/g1_point.cu kernels and G2's through csrc/g2_point.cu (on CPU
+tensors, through their plain versions ``G1.add_plain`` / ``dbl_plain``
+and ``G2.add_plain`` / ``dbl_plain``).
 
 G1: y² = x³ + 4 over Fq (48-byte compressed points — signatures).
 G2: y² = x³ + 4(1+u) over Fq2 (96-byte compressed points — public keys,
@@ -31,35 +31,39 @@ R = oracle.R  # subgroup order
 _B3 = 12  # b = 4  →  b3 = 12;   b' = 4(1+u)  →  b3' = 12(1+u)
 
 
-class G1Ops(CurveOps):
-    """G1 over Fq with the fused kernels as its group law on CUDA
-    tensors (csrc/g1_point.cu) and the generic formulas over the plain
-    field as their plain versions; the two are bit-identical."""
+class _FusedCurveOps(CurveOps):
+    """A curve whose add and double are fused kernels on CUDA tensors,
+    each launched over the (-1, *lane) lanes of the broadcast
+    coordinates, and whose plain versions are the generic formulas over
+    the plain field, which launch nothing; the two are bit-identical.
+    A failed build or launch raises: nothing falls back to the
+    formulas."""
 
-    def __init__(self):
-        super().__init__(FQ, lambda x: FQ.mul_small(x, _B3), "bls12381_g1")
-        self._plain = CurveOps(PlainField(FQ),
-                               lambda x: FQ.mul_small(x, _B3),
-                               "bls12381_g1_plain")
+    def __init__(self, field, plain, mul_b3_of, name: str, add_kernel,
+                 dbl_kernel):
+        super().__init__(field, mul_b3_of(field), name)
+        self._plain = CurveOps(plain, mul_b3_of(plain), f"{name}_plain")
+        self._add_kernel, self._dbl_kernel = add_kernel, dbl_kernel
+        self._lane = tuple(field.one().shape)
 
-    @staticmethod
-    def _lanes(*coords: Tensor):
+    def _lanes(self, *coords: Tensor):
         coords = torch.broadcast_tensors(*coords)
         shape = coords[0].shape
-        return shape, tuple(c.reshape(-1, FQ.n).contiguous() for c in coords)
+        return shape, tuple(c.reshape((-1,) + self._lane).contiguous()
+                            for c in coords)
 
     def add(self, p: Point, q: Point) -> Point:
         if p.x.device.type == "cpu":
             return self.add_plain(p, q)
         shape, lanes = self._lanes(*p, *q)
-        out = kernels.g1_add(FQ, lanes[:3], lanes[3:])
+        out = self._add_kernel(FQ, lanes[:3], lanes[3:])
         return Point(*(c.reshape(shape) for c in out))
 
     def dbl(self, p: Point) -> Point:
         if p.x.device.type == "cpu":
             return self.dbl_plain(p)
         shape, lanes = self._lanes(*p)
-        out = kernels.g1_dbl(FQ, lanes)
+        out = self._dbl_kernel(FQ, lanes)
         return Point(*(c.reshape(shape) for c in out))
 
     def add_plain(self, p: Point, q: Point) -> Point:
@@ -69,8 +73,27 @@ class G1Ops(CurveOps):
         return self._plain.dbl(p)
 
 
+class G1Ops(_FusedCurveOps):
+    """G1 over Fq, its group law the kernels of csrc/g1_point.cu."""
+
+    def __init__(self):
+        super().__init__(FQ, PlainField(FQ),
+                         lambda f: lambda x: f.mul_small(x, _B3),
+                         "bls12381_g1", kernels.g1_add, kernels.g1_dbl)
+
+
+class G2Ops(_FusedCurveOps):
+    """G2 over Fq2, its group law the kernels of csrc/g2_point.cu; the
+    plain versions run over Fq2 of the plain field."""
+
+    def __init__(self):
+        super().__init__(FQ2, Fq2Ops(PlainField(FQ)),
+                         lambda f: lambda x: f.mul_small_xi(x, _B3),
+                         "bls12381_g2", kernels.g2_add, kernels.g2_dbl)
+
+
 G1 = G1Ops()
-G2 = CurveOps(FQ2, lambda x: FQ2.mul_small_xi(x, _B3), "bls12381_g2")
+G2 = G2Ops()
 
 _FLAG_COMPRESSED = 0x80
 _FLAG_INFINITY = 0x40

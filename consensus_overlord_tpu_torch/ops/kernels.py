@@ -23,8 +23,8 @@ many threads.  The field tables are uploaded
 once per device per process, under the module's lock.
 
 The wrappers take the JAX package's limb layouts — (B, n) for the field
-and point kernels, the tower's (B, 2, n), (B, 2, 3, 2, n) for the pairing
-kernels — int32, contiguous, on one CUDA device; they allocate outputs
+and point kernels, (B, 2, n) for the G2 point kernels, the tower's
+(B, 2, n), (B, 2, 3, 2, n) for the pairing kernels — int32, contiguous, on one CUDA device; they allocate outputs
 with ``torch.empty`` and launch on ``torch.cuda.current_stream()``.
 """
 
@@ -69,7 +69,7 @@ PLAN_NAMES = ("mul", "add2", "sub", "small2", "small3", "small8", "small12",
 G1_B3 = {"bls12381_fq": 12, "secp256k1_fq": 21}
 #: The libraries built for each field, by field name.
 SPEC_LIBS = {
-    "bls12381_fq": ("fq_mul", "g1_point", "pairing"),
+    "bls12381_fq": ("fq_mul", "g1_point", "g2_point", "pairing"),
     "F_ed25519": ("fq_mul", "ed_point"),
     "secp256k1_fq": ("fq_mul", "g1_point"),
     "sm2_fq": ("fq_mul", "wp_point"),
@@ -89,11 +89,14 @@ def max_width(spec) -> int:
 
 #: Threads per lane ("lane group") of each kernel, fixed at build time
 #: (MUL_G in csrc/fq_mul.cu, ADD_G and DBL_G in csrc/g1_point.cu,
-#: TOWER_G in csrc/pairing.cu, ED_ADD_G and ED_LADDER_G in
-#: csrc/ed_point.cu, WP_G in csrc/wp_point.cu).
+#: G2_ADD_G and G2_DBL_G in csrc/g2_point.cu, TOWER_G in csrc/pairing.cu,
+#: ED_ADD_G and ED_LADDER_G in csrc/ed_point.cu, WP_G in
+#: csrc/wp_point.cu).
 FQ_MUL_GROUP = 8
 G1_ADD_GROUP = 16
 G1_DBL_GROUP = 16
+G2_ADD_GROUP = 16
+G2_DBL_GROUP = 16
 TOWER_GROUP = 16
 ED_ADD_GROUP = 8
 ED_LADDER_GROUP = 16
@@ -102,8 +105,8 @@ WP_GROUP = 16
 #: its programs are built for TOWER_THREADS // 32 warps.
 TOWER_THREADS = 512
 GROUP_SIZES = tuple(sorted({FQ_MUL_GROUP, G1_ADD_GROUP, G1_DBL_GROUP,
-                            TOWER_GROUP, ED_ADD_GROUP, ED_LADDER_GROUP,
-                            WP_GROUP}))
+                            G2_ADD_GROUP, G2_DBL_GROUP, TOWER_GROUP,
+                            ED_ADD_GROUP, ED_LADDER_GROUP, WP_GROUP}))
 
 
 class Kernel:
@@ -156,7 +159,18 @@ PAIRING_KERNELS = (MILLER_PRODUCT, FQ12_MUL, FINAL_EXP)
 FQ_INV = Kernel(
     "fq_inv", "consensus_overlord_tpu_torch/csrc/pairing.cu",
     "consensus_overlord_tpu/ops/field.py:340")
-BLS_KERNELS = (FQ_MUL, G1_ADD, G1_DBL) + PAIRING_KERNELS + (FQ_INV,)
+# BLS12-381's G2 group law (csrc/g2_point.cu) replaces CurveOps.add and
+# CurveOps.dbl over Fq2 inside the JAX package's XLA jits
+# (crypto/tpu_provider.py verify_round_fn, _g2_sum_rows, _g2_validate,
+# _build_g2_tables), which have no Pallas twin.
+G2_ADD = Kernel(
+    "g2_add", "consensus_overlord_tpu_torch/csrc/g2_point.cu",
+    "consensus_overlord_tpu/ops/curve.py:78")
+G2_DBL = Kernel(
+    "g2_dbl", "consensus_overlord_tpu_torch/csrc/g2_point.cu",
+    "consensus_overlord_tpu/ops/curve.py:104")
+BLS_KERNELS = ((FQ_MUL, G1_ADD, G1_DBL, G2_ADD, G2_DBL) + PAIRING_KERNELS
+               + (FQ_INV,))
 # The kernels of the Ed25519, secp256k1 and SM2 paths.  fq_mul serves
 # each field's decompression, x tests and predicates; the secp256k1 add
 # and doubling are g1_point.cu's bodies built with 3b = 21; ed_add and
@@ -203,6 +217,7 @@ _FQ_MUL_OF = {k.spec: k for k in (FQ_MUL, FQ_MUL_ED25519, FQ_MUL_SECP256K1,
                                   FQ_MUL_SM2)}
 _G1_OF = {"bls12381_fq": (G1_ADD, G1_DBL),
           "secp256k1_fq": (SECP_ADD, SECP_DBL)}
+_G2_OF = {"bls12381_fq": (G2_ADD, G2_DBL)}
 
 
 def reset_counts() -> None:
@@ -365,6 +380,11 @@ _LIBS = {
     "g1_point": ("g1_point.cu", {
         "g1_add_launch": [_VP] * 9 + [_I, _I, _VP],
         "g1_dbl_launch": [_VP] * 6 + [_I, _I, _VP],
+    }),
+    "g2_point": ("g2_point.cu", {
+        "g2_add_launch": [_VP] * 9 + [_I, _I, _VP],
+        "g2_dbl_launch": [_VP] * 6 + [_I, _I, _VP],
+        "g2_point_occupancy": [_I, _VP, _VP],
     }),
     "pairing": ("pairing.cu", {
         "miller_product_launch": [_VP] * 8 + [_I, _I, _I, _VP],
@@ -566,20 +586,24 @@ def fq_tables(spec) -> np.ndarray:
     return tab
 
 
-def _check(name: str, tensors: Sequence[torch.Tensor], n: int) -> int:
-    """Validate kernel operands; returns the batch (lane) count."""
+def _check(name: str, tensors: Sequence[torch.Tensor], n: int,
+           comps: int = 1) -> int:
+    """Validate kernel operands, each (B, n), or (B, comps, n) for an
+    extension field's elements; returns the batch (lane) count."""
     t0 = tensors[0]
     if t0.device.type != "cuda":
         raise ValueError(f"{name}: operands must be CUDA tensors, got "
                          f"{t0.device}")
+    lane = (n,) if comps == 1 else (comps, n)
     for t in tensors:
         if t.device != t0.device:
             raise ValueError(f"{name}: operands on different devices")
         if t.dtype != torch.int32:
             raise ValueError(f"{name}: operands must be int32, got {t.dtype}")
-        if t.dim() != 2 or t.shape[1] != n or t.shape != t0.shape:
-            raise ValueError(f"{name}: operands must share one (B, {n}) "
-                             f"shape, got {tuple(t.shape)}")
+        if tuple(t.shape[1:]) != lane or t.shape != t0.shape:
+            raise ValueError(f"{name}: operands must share one "
+                             f"(B, {', '.join(map(str, lane))}) shape, got "
+                             f"{tuple(t.shape)}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: operands must be contiguous")
     return t0.shape[0]
@@ -648,10 +672,12 @@ def _check_like(name: str, what: str, tensors: Sequence[torch.Tensor],
 
 
 def _point_launch(kernel: Kernel, lib: str, fn: str, spec, ins,
-                  nout: int, consts=()) -> Tuple[torch.Tensor, ...]:
-    """Launch a point kernel over (B, n) coordinates `ins` (then the
-    constant rows `consts`, each (1, n)) into `nout` new coordinates."""
-    batch = _check(kernel.name, ins, spec.n)
+                  nout: int, consts=(), comps: int = 1
+                  ) -> Tuple[torch.Tensor, ...]:
+    """Launch a point kernel over (B, n) coordinates `ins` ((B, comps, n)
+    over an extension field; then the constant rows `consts`, each
+    (1, n)) into `nout` new coordinates."""
+    batch = _check(kernel.name, ins, spec.n, comps)
     dev = ins[0].device
     _check_like(kernel.name, "constant rows", consts, (1, spec.n), dev)
     handle = _prepare(lib, spec, dev)
@@ -681,6 +707,25 @@ def g1_dbl(spec, p: Tuple[torch.Tensor, ...]) -> Tuple[torch.Tensor, ...]:
     kernel = _kernel_of(_G1_OF, spec, "g1_dbl")[1]
     return _point_launch(kernel, "g1_point", "g1_dbl_launch", spec,
                          tuple(p), 3)
+
+
+def g2_add(spec, p: Tuple[torch.Tensor, ...],
+           q: Tuple[torch.Tensor, ...]) -> Tuple[torch.Tensor, ...]:
+    """Fused RCB complete addition on BLS12-381's G2 (csrc/g2_point.cu):
+    projective (x1,y1,z1) + (x2,y2,z2) → (x3,y3,z3) over Fq2, each
+    (B, 2, n) int32.  Bit-identical to bls12381_groups.G2.add_plain."""
+    kernel = _kernel_of(_G2_OF, spec, "g2_add")[0]
+    return _point_launch(kernel, "g2_point", "g2_add_launch", spec,
+                         tuple(p) + tuple(q), 3, comps=2)
+
+
+def g2_dbl(spec, p: Tuple[torch.Tensor, ...]) -> Tuple[torch.Tensor, ...]:
+    """Fused a=0 doubling on BLS12-381's G2 (csrc/g2_point.cu), each
+    coordinate (B, 2, n) int32.  Bit-identical to
+    bls12381_groups.G2.dbl_plain."""
+    kernel = _kernel_of(_G2_OF, spec, "g2_dbl")[1]
+    return _point_launch(kernel, "g2_point", "g2_dbl_launch", spec,
+                         tuple(p), 3, comps=2)
 
 
 def ed_add(spec, p: Tuple[torch.Tensor, ...], q: Tuple[torch.Tensor, ...],
@@ -778,7 +823,8 @@ def wp_dual_ladder(spec, tq: Tuple[torch.Tensor, ...],
 
 #: Kernels whose library reports its occupancy: name → (library, the
 #: kernel's index in `<library>_occupancy`).
-_OCCUPANCY = {"ed_add": ("ed_point", 0), "ed_ladder": ("ed_point", 1),
+_OCCUPANCY = {"g2_add": ("g2_point", 0), "g2_dbl": ("g2_point", 1),
+              "ed_add": ("ed_point", 0), "ed_ladder": ("ed_point", 1),
               "wp_add_general": ("wp_point", 0),
               "wp_dual_ladder": ("wp_point", 1)}
 

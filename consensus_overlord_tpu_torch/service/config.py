@@ -8,8 +8,7 @@ reference deployment's config file drops in unchanged.  Extra
 The port's own copy of consensus_overlord_tpu/service/config.py.  Its
 crypto backends are "cuda" (CudaBlsCrypto on the card, the default) and
 "cpu" (the host oracle CpuBlsCrypto); the multi-device mesh (ROADMAP
-item 14) and the G2 table MSM (item 11) are not ported, and asking for
-either raises at load.
+item 14) is not ported, and asking for it raises at load.
 """
 
 from __future__ import annotations
@@ -86,7 +85,8 @@ class ConsensusConfig:
     #: any other value raises.
     mesh: str = "off"
     #: Serve the verify relation's G2 MSM from per-pubkey precomputed
-    #: window tables; not ported (ROADMAP item 11), so True raises.
+    #: window tables rebuilt on reconfigure (ops/curve.py
+    #: msm_table_build; ~240 KB of device memory per cached pubkey row).
     g2_table_msm: bool = False
     #: Dispatch watchdog (crypto/cuda_provider.py): deadline in seconds
     #: for each blocking device call, scaled up by batch rung — a
@@ -214,10 +214,6 @@ class ConsensusConfig:
             raise ValueError(
                 f"mesh must be off, got {self.mesh!r}: the multi-GPU "
                 "mesh is not ported (ROADMAP item 14)")
-        if self.g2_table_msm:
-            raise ValueError(
-                "g2_table_msm = true: the G2 table MSM is not ported "
-                "(ROADMAP item 11)")
         if self.supervisor_step_threshold < 1:
             raise ValueError(
                 f"supervisor_step_threshold must be >= 1, got "

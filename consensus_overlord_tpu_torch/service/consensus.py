@@ -69,6 +69,7 @@ def _make_crypto(backend: str, private_key: int,
         return CudaBlsCrypto(
             private_key, device=device,
             device_pairing=config.device_pairing_flag,
+            g2_table_msm=config.g2_table_msm,
             dispatch_deadline_s=config.dispatch_deadline_s)
     if backend == "cpu":
         from ..crypto.provider import CpuBlsCrypto

@@ -20,7 +20,18 @@ lanes, 64 windows), over 10 launches, each with its resident warps an
 SM where the checkout reports them.  With --curves-only a root builds
 and times the 26-limb kernels alone (a sweep of build-time variants:
 copies of the package under .ab/ with #defines put in front of
-csrc/ed_point.cu and csrc/wp_point.cu).  Inputs are random loose
+csrc/ed_point.cu and csrc/wp_point.cu).  Where the checkout has BLS12-381's
+G2 kernels (csrc/g2_point.cu), g2_add and g2_dbl are timed at their
+sizes on the main path (G2_SIZES) with their registers, spills and
+resident warps; --g2-only builds and times those alone (a sweep: copies
+under .ab/ with the #defines G2_{ADD,DBL}_{THREADS,G,NP,MIN_BLOCKS} of
+csrc/g2_point.cu sed-edited).  --round drives CudaBlsCrypto on
+chip_smoke.py's fixtures instead (8,192 validators): update_pubkeys, a
+warm single-hash verify_batch (seconds of three, launches of one),
+g2_sum_rows over every validator's row (the QC pubkey sum, a synchronised
+step, mean of five) and verify_aggregated_signature (seconds of three),
+so the parent's and the change's end-to-end figures come from one
+card.  Inputs are random loose
 limbs from --seed (the point formulas are polynomials, so any loose
 coordinates time them), the same in every root, and each line carries
 a SHA-256 of every output (`digest`): equal digests across roots mean
@@ -45,6 +56,11 @@ PAIRING_SIZES = {"miller_product": (2, 5), "fq12_mul": (1,),
 #: 8,192-vote deployments (PERF.md §4).
 CURVE_SIZES = {"ed_add": 16386, "wp_add_general": 8192,
                "ed_ladder": 16386, "wp_dual_ladder": 8192}
+#: G2 lanes on the BLS main path: the ladder's 8,192, the 3-hash round's
+#: (B, k) rung, the tree sum's powers of two, the table path's window
+#: tree (8,192 × 8) and table build (16,384 rows × 16 windows).
+G2_SIZES = {"g2_add": (1, 16, 256, 4096, 8192, 24576, 65536, 262144),
+            "g2_dbl": (8192, 16384, 24576)}
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
@@ -104,8 +120,80 @@ def curve_worker(out: dict, seed: int, clock_hz: float) -> None:
                 name, spec, torch.device("cuda"))
 
 
-def worker(root: str, seed: int, clock_hz: float,
-           curves_only: bool) -> dict:
+def g2_worker(out: dict, seed: int, clock_hz: float) -> None:
+    """BLS12-381's G2 kernels of the checkout at G2_SIZES."""
+    from chip_smoke import ptxas_report, time_ms
+    import numpy as np
+    import torch
+    from consensus_overlord_tpu_torch.ops import bls12381_groups as dev
+    from consensus_overlord_tpu_torch.ops import kernels
+
+    fq = dev.FQ
+    report = ptxas_report(kernels)
+    out["ptxas_g2"] = {k: v for k, v in report.items() if "g2_" in k}
+    rng = np.random.default_rng(seed + 2)
+    for name, sizes in G2_SIZES.items():
+        for lanes in sizes:
+            a, b = (tuple(torch.from_numpy(rng.integers(
+                0, fq.loose_max + 1, size=(lanes, 2, fq.n),
+                dtype=np.int32)).cuda() for _ in range(3))
+                for _ in range(2))
+            run = ((lambda: kernels.g2_add(fq, a, b)) if name == "g2_add"
+                   else (lambda: kernels.g2_dbl(fq, a)))
+            out["digest"][f"{name}@{lanes}"] = _digest(run())
+            out[f"{name}@{lanes}"] = time_ms(torch, run, 100, clock_hz)
+        out[f"{name}_resident_warps"] = kernels.resident_warps(
+            name, fq, torch.device("cuda"))
+
+
+def round_worker(out: dict) -> None:
+    """The warm round, the QC pubkey sum and the QC verify of the
+    checkout's CudaBlsCrypto on chip_smoke.py's fixtures."""
+    import time
+
+    from chip_smoke import LANES, make_fixtures
+    import torch
+    from consensus_overlord_tpu_torch.crypto import cuda_provider as cp
+    from consensus_overlord_tpu_torch.ops import kernels
+
+    s0, hashes, pks, sigs = make_fixtures(7, LANES)
+    n, h = len(pks), hashes[0]
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        got = fn()
+        torch.cuda.synchronize()
+        return got, time.perf_counter() - t
+
+    prov = cp.CudaBlsCrypto(s0, device="cuda")
+    _, out["update_pubkeys_s"] = timed(lambda: prov.update_pubkeys(pks))
+    round_ = lambda: prov.verify_batch(sigs[0], [h] * n, pks)  # noqa: E731
+    round_()
+    kernels.reset_counts()
+    got, secs = timed(round_)
+    if got != [True] * n:
+        raise SystemExit("round: valid votes rejected")
+    out["round_launches"] = {k: v for k, v in kernels.counts().items() if v}
+    out["round_s"] = [secs] + [timed(round_)[1] for _ in range(2)]
+    agg = prov.aggregate_signatures(sigs[0], pks)
+    rows = torch.tensor([prov._pk.index[v] for v in pks], device="cuda")
+    mask = torch.ones(n, dtype=torch.bool, device="cuda")
+    pk = prov._pk_device()
+    cp.g2_sum_rows(rows, mask, *pk)
+    out["g2_sum_rows_s"] = sum(timed(lambda: cp.g2_sum_rows(
+        rows, mask, *pk))[1] for _ in range(5)) / 5
+    qc = lambda: prov.verify_aggregated_signature(agg, h, pks)  # noqa: E731
+    if not qc():
+        raise SystemExit("qc_verify: the aggregate did not verify")
+    kernels.reset_counts()
+    out["qc_verify_s"] = [timed(qc)[1] for _ in range(3)]
+    out["qc_verify_launches"] = {k: v // 3 for k, v in
+                                 kernels.counts().items() if v}
+
+
+def worker(root: str, seed: int, clock_hz: float, curves_only: bool,
+           g2_only: bool = False, round_only: bool = False) -> dict:
     sys.path.insert(0, REPO)
     # This checkout's timing and ptxas reading, for every root.
     from chip_smoke import ptxas_report, time_ms
@@ -123,6 +211,14 @@ def worker(root: str, seed: int, clock_hz: float,
         out = {"root": root, "digest": {},
                "build_s": kernels.build_all((ed.FE, w.FQ_SM2))}
         curve_worker(out, seed, clock_hz)
+        return out
+    if g2_only or round_only:
+        out = {"root": root, "digest": {},
+               "build_s": kernels.build_all((fq,))}
+        if round_only:
+            round_worker(out)
+        else:
+            g2_worker(out, seed, clock_hz)
         return out
     kernels.build_all()
 
@@ -143,6 +239,8 @@ def worker(root: str, seed: int, clock_hz: float,
             got = got if isinstance(got, tuple) else (got,)
             out["digest"][f"{name}@{lanes}"] = _digest(got)
             out[f"{name}@{lanes}"] = time_ms(torch, run, 100, clock_hz)
+    if hasattr(kernels, "g2_add"):
+        g2_worker(out, seed, clock_hz)
     if not hasattr(kernels, "miller_product"):
         return out
     for name, sizes in PAIRING_SIZES.items():
@@ -167,13 +265,18 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=11)
     ap.add_argument("--curves-only", action="store_true",
                     help="build and time the 26-limb point kernels only")
+    ap.add_argument("--g2-only", action="store_true",
+                    help="build and time BLS12-381's G2 kernels only")
+    ap.add_argument("--round", action="store_true",
+                    help="time the provider's warm round and QC paths")
     ap.add_argument("--worker", action="store_true", help=argparse.SUPPRESS)
     ap.add_argument("--clock-hz", type=float, default=0.0,
                     help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.worker:
         print(json.dumps(worker(args.roots[0], args.seed, args.clock_hz,
-                                args.curves_only)), flush=True)
+                                args.curves_only, args.g2_only,
+                                args.round)), flush=True)
         return 0
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit,clocks.max.sm",
@@ -185,7 +288,9 @@ def main(argv=None) -> int:
         subprocess.run([sys.executable, os.path.abspath(__file__), root,
                         "--worker", "--seed", str(args.seed),
                         "--clock-hz", str(clock_hz)]
-                       + ["--curves-only"] * args.curves_only, check=True)
+                       + ["--curves-only"] * args.curves_only
+                       + ["--g2-only"] * args.g2_only
+                       + ["--round"] * args.round, check=True)
     return 0
 
 

@@ -118,6 +118,94 @@ def test_g1_kernels_match_plain_at_ragged_sizes(cuda, batch, op):
         assert all(torch.equal(a, b) for a, b in zip(got, want))
 
 
+_G2_CACHE = {}
+
+
+def _g2_inputs(batch, device):
+    """G2 (P, Q) lane pairs of _g1_inputs' three kinds over Fq2: random
+    points with identities, P + P and P + (−P), loose off-curve limbs."""
+    if "pts" not in _G2_CACHE:
+        rng = np.random.default_rng(62)
+        _G2_CACHE["pts"] = [oracle.g2_mul(oracle.G2_GEN,
+                                          int(rng.integers(1, 2**62)))
+                            for _ in range(12)]
+    pts = _G2_CACHE["pts"]
+    p = [pts[i % len(pts)] for i in range(batch)]
+    q = [pts[(5 * i + 3) % len(pts)] for i in range(batch)]
+    neg = [a if i % 2 else (a[0], oracle.fq2_neg(a[1]))
+           for i, a in enumerate(p)]
+    pairs = [([None if i % 5 == 2 else a for i, a in enumerate(p)],
+              [None if i % 5 == 4 else b for i, b in enumerate(q)]),
+             (p, neg)]
+    out = [(dev.g2_from_oracle(a, device), dev.g2_from_oracle(b, device))
+           for a, b in pairs]
+    rng = np.random.default_rng(batch + 2)
+    out.append(tuple(dev.Point(*(_loose(rng, 2 * batch).reshape(
+        batch, 2, dev.FQ.n).to(device) for _ in range(3))) for _ in range(2)))
+    return out
+
+
+@pytest.mark.parametrize("op", ("add", "dbl"))
+@pytest.mark.parametrize("batch", RAGGED)
+def test_g2_kernels_match_plain_at_ragged_sizes(cuda, batch, op):
+    for p, q in _g2_inputs(batch, cuda):
+        before = kernels.counts()[f"g2_{op}"]
+        if op == "add":
+            got, want = dev.G2.add(p, q), dev.G2.add_plain(p, q)
+        else:
+            got, want = dev.G2.dbl(p), dev.G2.dbl_plain(p)
+        assert kernels.counts()[f"g2_{op}"] == before + 1
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def test_g2_kernels_at_the_grouped_ladder_shape(cuda):
+    """(B, k) lanes, as verify_round_multi's ladder launches them, and the
+    oracle's sums."""
+    p, q = _g2_inputs(24, cuda)[0]
+    pk = dev.Point(*(c.reshape(8, 3, 2, dev.FQ.n) for c in p))
+    qk = dev.Point(*(c.reshape(8, 3, 2, dev.FQ.n) for c in q))
+    for got, want in ((dev.G2.add(pk, qk), dev.G2.add_plain(pk, qk)),
+                      (dev.G2.dbl(pk), dev.G2.dbl_plain(pk))):
+        assert got.x.shape == (8, 3, 2, dev.FQ.n)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+    pts = _G2_CACHE["pts"]
+    a = dev.g2_from_oracle(pts[:6], cuda)
+    b = dev.g2_from_oracle(pts[6:], cuda)
+    assert dev.g2_to_oracle(dev.G2.add(a, b)) == [
+        oracle.g2_add(x, y) for x, y in zip(pts[:6], pts[6:])]
+
+
+def test_table_provider_on_the_card_matches_the_ladder(cuda):
+    """CudaBlsCrypto(g2_table_msm=True) on the card: single- and 3-hash
+    verdicts equal to the ladder provider's and the oracle's."""
+    from consensus_overlord_tpu_torch.core.sm3 import sm3_hash
+    from consensus_overlord_tpu_torch.crypto.cuda_provider import (
+        CudaBlsCrypto)
+    from consensus_overlord_tpu_torch.crypto.provider import CpuBlsCrypto
+
+    cpus = [CpuBlsCrypto(0x3000 + 7919 * i) for i in range(40)]
+    voters = [c.pub_key for c in cpus]
+    tab = CudaBlsCrypto(0x3000, device_threshold=1, device=cuda,
+                        g2_table_msm=True)
+    ladder = CudaBlsCrypto(0x3000, device_threshold=1, device=cuda)
+    for p in (tab, ladder):
+        p.update_pubkeys(voters)
+    assert tab._pk_tab is not None
+    hs = [sm3_hash(b"card-tables-%d" % g) for g in range(3)]
+    for hashes in ([hs[0]] * 40, [hs[i % 3] for i in range(40)]):
+        sigs = [c.sign(h) for c, h in zip(cpus, hashes)]
+        sigs[5] = sigs[6]  # a wrong signer
+        want = [c.verify_signature(s, h, v) for c, s, h, v in
+                zip(cpus, sigs, hashes, voters)]
+        before = kernels.counts()
+        assert tab.verify_batch(sigs, hashes, voters) == want
+        after = kernels.counts()
+        assert after["g2_add"] > before["g2_add"]
+        assert after["g2_dbl"] == before["g2_dbl"]  # no ladder on the path
+        assert ladder.verify_batch(sigs, hashes, voters) == want
+    assert tab.breaker.status()["total_failures"] == 0
+
+
 def test_kernel_wrapper_rejects_bad_operands(cuda):
     x = torch.zeros((8, dev.FQ.n), dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError, match="int32"):

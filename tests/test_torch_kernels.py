@@ -165,6 +165,57 @@ def test_curve_lane_ops_count_each_kernel():
             assert ops[name]["either"] == sum(small.values()) * spec.n
 
 
+@pytest.mark.parametrize("op", ["g2_add", "g2_dbl"])
+def test_g2_lane_ops_count_the_plain_formulas(op):
+    """chip_smoke.py's count for the G2 kernels is the Fq ops the plain
+    formulas run (CurveOps over Fq2Ops, the same op sequence as
+    csrc/g2_point.cu), tallied per element by a counting field on one
+    lane."""
+    import torch
+
+    from consensus_overlord_tpu_torch.crypto import bls12381 as oracle
+    from consensus_overlord_tpu_torch.ops import bls12381_groups as dev
+    from consensus_overlord_tpu_torch.ops.curve import CurveOps
+    from consensus_overlord_tpu_torch.ops.fq2 import Fq2Ops
+
+    tally = Counter()
+
+    class Counting:
+        def __init__(self, spec):
+            self._spec = spec
+
+        def __getattr__(self, name):
+            return getattr(self._spec, name)
+
+        def _count(self, name, *xs):
+            tally[name] += torch.broadcast_tensors(*xs)[0].numel() // TFQ.n
+
+        def add(self, x, y):
+            self._count("add", x, y)
+            return self._spec.add(x, y)
+
+        def sub(self, x, y):
+            self._count("sub", x, y)
+            return self._spec.sub(x, y)
+
+        def mul(self, x, y):
+            self._count("mul", x, y)
+            return self._spec.mul_plain(x, y)
+
+        def mul_small(self, x, k):
+            self._count(f"small{k}", x)
+            return self._spec.mul_small(x, k)
+
+    f2 = Fq2Ops(Counting(TFQ))
+    g2 = CurveOps(f2, lambda x: f2.mul_small_xi(x, 12), "counting")
+    p = dev.g2_from_oracle([oracle.G2_GEN])
+    g2.add(p, p) if op == "g2_add" else g2.dbl(p)
+    f = chip_smoke.field_ops(TFQ)
+    assert chip_smoke.lane_ops(TFQ)[op] == chip_smoke._ops(
+        *((c, f[k]) for k, c in tally.items()))
+    assert tally["mul"] == (36 if op == "g2_add" else 24)
+
+
 # (imad, alu, either) per lane, bytes in all, and the limit that binds.
 _LIMITS = [((6400, 10, 0), 0, "imad"),
            ((10, 6400, 0), 0, "alu"),

@@ -137,6 +137,20 @@ def test_pubkey_cache_from_jax(cpus):
     assert p._pk.index == jax_prov._pk_index  # nothing was re-validated
 
 
+@pytest.mark.parametrize("text", ["0x{:064x}\n", "{:064x}"])
+def test_cpu_provider_from_file_matches_jax(tmp_path, text):
+    """CpuBlsCrypto.from_file reads the reference's hex key file (with or
+    without 0x) into the same key as the JAX package's from_file."""
+    from consensus_overlord_tpu_torch.crypto.provider import (
+        CpuBlsCrypto as PortCpuBlsCrypto)
+
+    path = tmp_path / "private_key"
+    path.write_text(text.format(KEYS[3]))
+    port = PortCpuBlsCrypto.from_file(str(path))
+    assert port.pub_key == CpuBlsCrypto.from_file(str(path)).pub_key
+    assert port.pub_key == PortCpuBlsCrypto(KEYS[3]).pub_key
+
+
 def test_cuda_device_without_a_card_raises():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")

@@ -32,7 +32,7 @@ from consensus_overlord_tpu.service.pb import pb2 as ref_pb2
 from consensus_overlord_tpu_torch.crypto.cuda_provider import CudaBlsCrypto
 from consensus_overlord_tpu_torch.crypto.provider import CpuBlsCrypto
 from consensus_overlord_tpu_torch.service.config import ConsensusConfig
-from consensus_overlord_tpu_torch.service.consensus import Consensus
+from consensus_overlord_tpu_torch.service.consensus import Consensus, _make_crypto
 from consensus_overlord_tpu_torch.service.main import ServiceRuntime
 from consensus_overlord_tpu_torch.service.pb import pb2
 from consensus_overlord_tpu_torch.service.rpc import (
@@ -190,7 +190,6 @@ def test_config_loads_the_reference_fields_from_toml(tmp_path):
     ({"crypto_backend": "tpu"}, '"cuda"'),
     ({"mesh": "local"}, "item 14"),
     ({"mesh": "global"}, "item 14"),
-    ({"g2_table_msm": True}, "item 11"),
     ({"frontier_max_batch": 0}, "frontier_max_batch"),
     ({"device_pairing": "maybe"}, "device_pairing"),
     ({"straggler_ratio": 0.5}, "straggler_ratio"),
@@ -198,10 +197,22 @@ def test_config_loads_the_reference_fields_from_toml(tmp_path):
 def test_config_refuses(fields, match):
     with pytest.raises(ValueError, match=match):
         ConsensusConfig.from_dict(fields)
-    if "crypto_backend" not in fields and "g2_table_msm" not in fields \
-            and "mesh" not in fields:
+    if "crypto_backend" not in fields and "mesh" not in fields:
         with pytest.raises(ValueError):
             RefConfig.from_dict(fields)
+
+
+@pytest.mark.parametrize("on", [True, False])
+def test_config_g2_table_msm_reaches_the_provider(on):
+    """The config takes g2_table_msm as the reference's does, and
+    _make_crypto hands it to CudaBlsCrypto (the G2 table MSM, ROADMAP
+    item 11)."""
+    config = ConsensusConfig.from_dict({"g2_table_msm": on})
+    assert config.g2_table_msm is on
+    assert RefConfig.from_dict({"g2_table_msm": on}).g2_table_msm is on
+    crypto = _make_crypto("cuda", 0x5EED, config, device="cpu")
+    assert crypto._use_g2_tables is on
+    assert crypto.degraded_status()["g2_table_msm"] is on
 
 
 # -- the service end to end -----------------------------------------------------
@@ -567,7 +578,8 @@ def test_smoke_service_phase_without_jax_grpc_prometheus_or_protobuf(
     bad = chip_smoke.service_failures(report)
     assert [b.split(":")[0].split(" ran")[0] for b in bad] == [
         "the measured heights never launched ['fq_mul', 'g1_add', "
-        "'miller_product', 'final_exp', 'fq_inv']", "update_pubkeys",
+        "'g2_add', 'miller_product', 'final_exp', 'fq_inv']",
+        "update_pubkeys",
         "aggregate",
         "qc_verify", "CheckBlock's signature checks did not run on the card"]
 
