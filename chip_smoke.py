@@ -300,25 +300,19 @@ def field_ops(spec) -> dict:
 
 def lane_ops(spec) -> dict:
     """int32 instructions per lane of each kernel, by pipe, counted from
-    its field ops; the pairing kernels' from their programs' op counts
-    (ops/tower_program.py)."""
-    from consensus_overlord_tpu_torch.ops import tower_program
+    its field ops; the G2 kernels' from the least their function needs in
+    the word representation (ops/g2_words.py bound_ops); the pairing
+    kernels' from their programs' op counts (ops/tower_program.py)."""
+    from consensus_overlord_tpu_torch.ops import g2_words, tower_program
     f = field_ops(spec)
     g1_add = _ops((12, f["mul"]), (12, f["add"]), (5, f["sub"]),
                   (1, f["small3"]), (2, f["small12"]))
     g1_dbl = _ops((8, f["mul"]), (2, f["add"]), (1, f["sub"]),
                   (1, f["small8"]), (1, f["small12"]), (1, f["small3"]),
                   (1, f["small2"]))
-    # G2 over Fq2: each Fq2 product three Fq products, two adds before
-    # (a0 + a1, b0 + b1), an add and two subs after; 3b = 12(1 + u) a sub,
-    # an add and two multiples by 12 (csrc/g2_point.cu).
-    g2_add = _ops((36, f["mul"]), (62, f["add"]), (36, f["sub"]),
-                  (2, f["small3"]), (4, f["small12"]))
-    g2_dbl = _ops((24, f["mul"]), (29, f["add"]), (19, f["sub"]),
-                  (2, f["small8"]), (2, f["small12"]), (2, f["small3"]),
-                  (2, f["small2"]))
     out = {"fq_mul": f["mul"], "g1_add": g1_add, "g1_dbl": g1_dbl,
-           "g2_add": g2_add, "g2_dbl": g2_dbl}
+           "g2_add": g2_words.bound_ops(g2_words.ADD),
+           "g2_dbl": g2_words.bound_ops(g2_words.DBL)}
     for name in PAIRING:
         by_kind = tower_program.program(name, spec).stats["by_kind"]
         out[name] = _ops(*((c, f[k]) for k, c in by_kind.items()))
@@ -429,38 +423,58 @@ G2_PLAIN_MAX = 24576
 G2_PLAIN_SLICE = 8192
 
 
-def g2_operands(torch, prov):
+#: Lanes of the G2 operands whose every limb is at the loose bound, then
+#: as many of random loose limbs (off the curve: the formulas are
+#: polynomials, so the kernel and its plain version must still agree).
+G2_LOOSE_LANES = slice(16, 32)
+G2_RANDOM_LANES = slice(32, 48)
+
+
+def g2_operands(torch, prov, seed: int):
     """G2 operands from the provider's device pubkey cache (the
     fixtures' keys as g2_validate left them): P its first LANES rows, Q
     the same rows reversed, with an identity in P's fourth-last lane and
-    Q's third-last, and P + P and P + (−P) in the last two lanes."""
+    Q's third-last, P + P and P + (−P) in the last two lanes, every limb
+    at 4095 in both in G2_LOOSE_LANES and random loose limbs from `seed`
+    in G2_RANDOM_LANES."""
     from consensus_overlord_tpu_torch.ops import bls12381_groups as dev
 
     p = dev.Point(*(c[:LANES].clone() for c in prov._pk_device()))
     q = dev.Point(*(c.flip(0) for c in p))
     inf = dev.G2.infinity_like(p.x[:1])
     neg = dev.G2.neg(dev.Point(*(c[-1:] for c in p)))
+    gen = torch.Generator(device=p.x.device).manual_seed(seed + 12)
     for cp, cq, ci, cn in zip(p, q, inf, neg):
         cp[-4] = ci[0]
         cq[-3] = ci[0]
         cq[-2] = cp[-2]
         cq[-1] = cn[0]
+        for c in (cp, cq):
+            c[G2_LOOSE_LANES] = dev.FQ.loose_max
+            c[G2_RANDOM_LANES] = torch.randint(
+                0, dev.FQ.loose_max + 1, c[G2_RANDOM_LANES].shape,
+                dtype=c.dtype, device=c.device, generator=gen)
     return p, q
 
 
 def g2_kernel_checks(torch, kernels, launches: dict, card: dict, operands,
                      sizes: dict, ptxas: dict, pk_aff):
-    """g2_add and g2_dbl vs their plain versions on the card (tolerance
-    0, torch.equal), timed with CUDA events beside the plain version and
-    the bound, at B = LANES for the kernels line and at every lane count
-    of `sizes` (operands tiled), with registers, spills and resident
-    warps; and g2_add's first lane against the oracle."""
+    """g2_add and g2_dbl vs their plain versions on the card: every
+    output coordinate equal in canonical value (FieldSpec.strict of both,
+    torch.equal: the kernels choose their own limbs), every output limb
+    at most FQ.loose_max; timed with CUDA events beside the plain version
+    and the bound (the least the function needs in words,
+    g2_words.bound_ops), at B = LANES for the kernels line and at every
+    lane count of `sizes` (operands tiled), with
+    registers, spills and resident warps; and g2_add's first lane against
+    the oracle."""
     from consensus_overlord_tpu_torch.crypto import bls12381 as oracle
     from consensus_overlord_tpu_torch.ops import bls12381_groups as dev
 
     p, q = operands
-    ops = lane_ops(dev.FQ)
-    lane_bytes = {"g2_add": 18 * dev.FQ.n * 4, "g2_dbl": 12 * dev.FQ.n * 4}
+    fq = dev.FQ
+    ops = lane_ops(fq)
+    lane_bytes = {"g2_add": 18 * fq.n * 4, "g2_dbl": 12 * fq.n * 4}
 
     def measure(name: str, lanes: int) -> dict:
         idx = torch.arange(lanes, device="cuda") % LANES
@@ -473,17 +487,22 @@ def g2_kernel_checks(torch, kernels, launches: dict, card: dict, operands,
             run = lambda: dev.G2.dbl(ps)  # noqa: E731
             plain = lambda a, b: dev.G2.dbl_plain(a)  # noqa: E731
         got = run()
+        if max(int(g.max()) for g in got) > fq.loose_max or \
+                min(int(g.min()) for g in got) < 0:
+            fail(f"{name}: an output limb outside 0..{fq.loose_max} at "
+                 f"B = {lanes}")
         cuts = ([slice(0, lanes)] if lanes <= G2_PLAIN_MAX else
                 [slice(0, G2_PLAIN_SLICE), slice(lanes - G2_PLAIN_SLICE,
                                                  lanes)])
         err = 0
         for cut in cuts:
             a, b = (dev.Point(*(c[cut] for c in pt)) for pt in (ps, qs))
-            want = plain(a, b)
-            if not all(torch.equal(g[cut], w) for g, w in zip(got, want)):
+            want = [fq.strict(w) for w in plain(a, b)]
+            mine = [fq.strict(g[cut]) for g in got]
+            if not all(torch.equal(g, w) for g, w in zip(mine, want)):
                 fail(f"{name} differs from its plain version at B = {lanes}")
-            err = max([err] + [int((g[cut].long() - w.long()).abs().max())
-                               for g, w in zip(got, want)])
+            err = max([err] + [int((g.long() - w.long()).abs().max())
+                               for g, w in zip(mine, want)])
         a, b = (dev.Point(*(c[cuts[0]] for c in pt)) for pt in (ps, qs))
         bound_ms, bound_by = bound(ops[name], lanes, lane_bytes[name] * lanes,
                                    card["clock_hz"])
@@ -774,15 +793,15 @@ _PTXAS_NAME = re.compile(r"(fq_mul_kernel|g1_dbl_kernel|g1_add_kernel|"
                          r"wp_add_general_kernel|wp_dual_ladder_kernel)")
 
 
-def ptxas_report(kernels, spec=None) -> dict:
+def ptxas_report(kernels, spec=None, libs=None) -> dict:
     """Registers, stack and spills of every kernel entry, from ptxas's
     -v report of the build of each library of a field (default
-    BLS12-381's)."""
+    BLS12-381's; `libs` names a subset)."""
     spec = spec or kernels._default_spec()
     # A checkout from before the per-field builds (scripts/
     # torch_kernels_ab.py reads a parent's) builds every library for BLS.
-    libs = (kernels.spec_libs(spec) if hasattr(kernels, "spec_libs")
-            else kernels._LIBS)
+    libs = libs or (kernels.spec_libs(spec) if hasattr(kernels, "spec_libs")
+                    else kernels._LIBS)
     out, cur = {}, None
     for lib in libs:
         for line in kernels.build_log(lib, spec).splitlines():
@@ -2779,8 +2798,8 @@ def main(argv=None) -> int:
         g2_sizes[k] = set(phase_sizes["single_hash"][k]) | {
             max(d, key=lambda b: (b * d[b], b)) for d in by if d}
     g2_rows, g2_phase = g2_kernel_checks(
-        torch, kernels, totals, card, g2_operands(torch, prov), g2_sizes,
-        ptxas, prov._pk.aff)
+        torch, kernels, totals, card, g2_operands(torch, prov, args.seed),
+        g2_sizes, ptxas, prov._pk.aff)
     emit(g2_phase)
     emit(trace_round(torch, prov, sigs[0], hashes[0], pks))
     emit({"kernels": rows + g2_rows + pair_rows + curve_rows})

@@ -35,9 +35,11 @@ class _FusedCurveOps(CurveOps):
     """A curve whose add and double are fused kernels on CUDA tensors,
     each launched over the (-1, *lane) lanes of the broadcast
     coordinates, and whose plain versions are the generic formulas over
-    the plain field, which launch nothing; the two are bit-identical.
-    A failed build or launch raises: nothing falls back to the
-    formulas."""
+    the plain field, which launch nothing.  G1's kernels are
+    bit-identical to their plain versions; G2's return the same field
+    elements in limbs of their own (csrc/g2_point.cu), equal after
+    FieldSpec.strict.  A failed build or launch raises: nothing falls
+    back to the formulas."""
 
     def __init__(self, field, plain, mul_b3_of, name: str, add_kernel,
                  dbl_kernel):

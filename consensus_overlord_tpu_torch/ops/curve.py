@@ -5,7 +5,9 @@ homogeneous projective coordinates (X:Y:Z) over a pluggable field (Fq for
 G1, Fq2 for G2), with the Renes–Costello–Batina complete formulas for
 a = 0, so add, double, identity and inverse pairs share one code path.
 Every method issues the same field-op sequence as the JAX package's, so
-outputs are bit-identical; where JAX scans, this module runs a Python
+outputs are bit-identical (on CUDA tensors G2's add and double are
+kernels that return the same field elements in limbs of their own:
+ops/bls12381_groups.py); where JAX scans, this module runs a Python
 loop, and where JAX selects a table row by a one-hot contraction, this
 module gathers it (the same values).
 """

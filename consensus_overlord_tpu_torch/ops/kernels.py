@@ -9,9 +9,11 @@ limb count, table size and reduction plans reach the kernels at build
 time: a header generated from ``FieldSpec._plan`` (``plan_header``) is
 written into the field's own directory, _build/<field name>/, and
 included by the sources, so every plan step unrolls over its live
-positions only.  The library's file name carries a hash of its sources,
-that header and the flags, so an edited source or a changed plan is
-never served by a stale build.  Nothing falls back: a missing ``nvcc``,
+positions only; g2_point also includes a header generated for it alone
+(``lib_header``: the word programs of ops/g2_words.py).  The library's
+file name carries a hash of its sources, those headers and the flags,
+so an edited source or a changed plan is never served by a stale
+build.  Nothing falls back: a missing ``nvcc``,
 a failed build or a refused launch raises.
 
 Each kernel, built for one field, keeps a launch counter
@@ -87,16 +89,15 @@ def max_width(spec) -> int:
     fq_field.cuh): the product's 2n − 1 positions and three carries."""
     return 2 * spec.n + 2
 
-#: Threads per lane ("lane group") of each kernel, fixed at build time
-#: (MUL_G in csrc/fq_mul.cu, ADD_G and DBL_G in csrc/g1_point.cu,
-#: G2_ADD_G and G2_DBL_G in csrc/g2_point.cu, TOWER_G in csrc/pairing.cu,
-#: ED_ADD_G and ED_LADDER_G in csrc/ed_point.cu, WP_G in
-#: csrc/wp_point.cu).
+#: Threads per lane ("lane group") of each kernel on the lane-group
+#: core, fixed at build time (MUL_G in csrc/fq_mul.cu, ADD_G and DBL_G in
+#: csrc/g1_point.cu, TOWER_G in csrc/pairing.cu, ED_ADD_G and ED_LADDER_G
+#: in csrc/ed_point.cu, WP_G in csrc/wp_point.cu).  The G2 kernels
+#: (csrc/g2_point.cu) run on the word core instead: G2_ADD_WARPS and
+#: G2_DBL_WARPS warps a block of 32 lanes, which nothing here mirrors.
 FQ_MUL_GROUP = 8
 G1_ADD_GROUP = 16
 G1_DBL_GROUP = 16
-G2_ADD_GROUP = 16
-G2_DBL_GROUP = 16
 TOWER_GROUP = 16
 ED_ADD_GROUP = 8
 ED_LADDER_GROUP = 16
@@ -105,8 +106,8 @@ WP_GROUP = 16
 #: its programs are built for TOWER_THREADS // 32 warps.
 TOWER_THREADS = 512
 GROUP_SIZES = tuple(sorted({FQ_MUL_GROUP, G1_ADD_GROUP, G1_DBL_GROUP,
-                            G2_ADD_GROUP, G2_DBL_GROUP, TOWER_GROUP,
-                            ED_ADD_GROUP, ED_LADDER_GROUP, WP_GROUP}))
+                            TOWER_GROUP, ED_ADD_GROUP, ED_LADDER_GROUP,
+                            WP_GROUP}))
 
 
 class Kernel:
@@ -404,6 +405,10 @@ _LIBS = {
     }),
 }
 _HEADERS = ("fq_field.cuh", "fq_group.cuh")
+#: Headers of one library alone, hashed into its build path only: the
+#: sources it includes beyond _HEADERS, and the name of the header
+#: generated for it (lib_header).
+_LIB_HEADERS = {"g2_point": (("fp381_words.cuh",), "g2_words.h")}
 
 _lock = threading.Lock()
 _loaded: Dict[Tuple[str, int], ctypes.CDLL] = {}  # (lib, id(spec))
@@ -442,21 +447,35 @@ def _nvcc() -> str:
     return path
 
 
+def lib_header(lib: str):
+    """(file name, text) of the header generated for the library alone,
+    or None: g2_point's word constants and programs (ops/g2_words.py
+    header_text)."""
+    if lib not in _LIB_HEADERS:
+        return None
+    from . import g2_words  # imports field.py, which imports this module
+    return _LIB_HEADERS[lib][1], g2_words.header_text()
+
+
 def _so_path(lib: str, header: str) -> str:
     """The library's build path, named by the hash of the nvcc flags, its
-    sources and the generated plan header's text (which names the
-    spec)."""
+    sources (_HEADERS and its own), the generated plan header's text
+    (which names the spec) and the text of its own generated header."""
     src, _ = _LIBS[lib]
+    own, _ = _LIB_HEADERS.get(lib, ((), None))
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in (src,) + _HEADERS:
+    for name in (src,) + _HEADERS + own:
         with open(os.path.join(CSRC, name), "rb") as f:
             h.update(f.read())
     h.update(header.encode())
+    extra = lib_header(lib)
+    if extra is not None:
+        h.update(extra[1].encode())
     return os.path.join(BUILD_DIR, f"{lib}_{h.hexdigest()[:16]}.so")
 
 
-def _write_header(spec, header: str) -> None:
-    path = os.path.join(header_dir(spec), PLAN_HEADER)
+def _write_header(spec, header: str, name: str = PLAN_HEADER) -> None:
+    path = os.path.join(header_dir(spec), name)
     if os.path.exists(path):
         with open(path) as f:
             if f.read() == header:
@@ -475,6 +494,9 @@ def _start_build(lib: str, spec, header: str):
     if built:
         return None
     _write_header(spec, header)
+    extra = lib_header(lib)
+    if extra is not None:
+        _write_header(spec, extra[1], extra[0])
     tmp = f"{so}.{os.getpid()}.tmp"
     cmd = [_nvcc()] + NVCC_FLAGS + ["-I", header_dir(spec), "-o", tmp,
                                     os.path.join(CSRC, _LIBS[lib][0])]
@@ -713,7 +735,10 @@ def g2_add(spec, p: Tuple[torch.Tensor, ...],
            q: Tuple[torch.Tensor, ...]) -> Tuple[torch.Tensor, ...]:
     """Fused RCB complete addition on BLS12-381's G2 (csrc/g2_point.cu):
     projective (x1,y1,z1) + (x2,y2,z2) → (x3,y3,z3) over Fq2, each
-    (B, 2, n) int32.  Bit-identical to bls12381_groups.G2.add_plain."""
+    (B, 2, n) int32 of loose limbs.  Each output coordinate is the same
+    field element as bls12381_groups.G2.add_plain's, as a plain 10-bit
+    split of a value below 2p: equal after FieldSpec.strict, not limb
+    for limb."""
     kernel = _kernel_of(_G2_OF, spec, "g2_add")[0]
     return _point_launch(kernel, "g2_point", "g2_add_launch", spec,
                          tuple(p) + tuple(q), 3, comps=2)
@@ -721,8 +746,8 @@ def g2_add(spec, p: Tuple[torch.Tensor, ...],
 
 def g2_dbl(spec, p: Tuple[torch.Tensor, ...]) -> Tuple[torch.Tensor, ...]:
     """Fused a=0 doubling on BLS12-381's G2 (csrc/g2_point.cu), each
-    coordinate (B, 2, n) int32.  Bit-identical to
-    bls12381_groups.G2.dbl_plain."""
+    coordinate (B, 2, n) int32.  The same field elements as
+    bls12381_groups.G2.dbl_plain's, in g2_add's limb form."""
     kernel = _kernel_of(_G2_OF, spec, "g2_dbl")[1]
     return _point_launch(kernel, "g2_point", "g2_dbl_launch", spec,
                          tuple(p), 3, comps=2)

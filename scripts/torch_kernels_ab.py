@@ -23,11 +23,13 @@ copies of the package under .ab/ with #defines put in front of
 csrc/ed_point.cu and csrc/wp_point.cu).  Where the checkout has BLS12-381's
 G2 kernels (csrc/g2_point.cu), g2_add and g2_dbl are timed at their
 sizes on the main path (G2_SIZES) with their registers, spills and
-resident warps; --g2-only builds and times those alone (a sweep: copies
-under .ab/ with the #defines G2_{ADD,DBL}_{THREADS,G,NP,MIN_BLOCKS} of
-csrc/g2_point.cu sed-edited).  --round drives CudaBlsCrypto on
-chip_smoke.py's fixtures instead (8,192 validators): update_pubkeys, a
-warm single-hash verify_batch (seconds of three, launches of one),
+resident warps, and their outputs' digests taken after FieldSpec.strict
+(the G2 kernels of one checkout may choose other limbs for the same
+field elements than another's); --g2-only builds and times those alone
+(a sweep: copies under .ab/ with the #defines
+G2_{ADD,DBL}_WARPS of csrc/g2_point.cu sed-edited).
+--round drives CudaBlsCrypto on chip_smoke.py's fixtures instead
+(8,192 validators): update_pubkeys, a warm single-hash verify_batch (seconds of three, launches of one),
 g2_sum_rows over every validator's row (the QC pubkey sum, a synchronised
 step, mean of five) and verify_aggregated_signature (seconds of three),
 so the parent's and the change's end-to-end figures come from one
@@ -35,7 +37,7 @@ card.  Inputs are random loose
 limbs from --seed (the point formulas are polynomials, so any loose
 coordinates time them), the same in every root, and each line carries
 a SHA-256 of every output (`digest`): equal digests across roots mean
-bit-identical kernels.  Giving the roots as parent, change, change,
+bit-identical kernels (for G2, the same field elements).  Giving the roots as parent, change, change,
 parent compares two versions on one card within one run.  Needs a GPU.
 """
 
@@ -47,6 +49,7 @@ import json
 import os
 import subprocess
 import sys
+import time
 
 SIZES = {"fq_mul": (8192, 131072), "g1_add": (1, 16, 256, 4096, 8192),
          "g1_dbl": (8192,)}
@@ -129,7 +132,7 @@ def g2_worker(out: dict, seed: int, clock_hz: float) -> None:
     from consensus_overlord_tpu_torch.ops import kernels
 
     fq = dev.FQ
-    report = ptxas_report(kernels)
+    report = ptxas_report(kernels, libs=("g2_point",))
     out["ptxas_g2"] = {k: v for k, v in report.items() if "g2_" in k}
     rng = np.random.default_rng(seed + 2)
     for name, sizes in G2_SIZES.items():
@@ -140,7 +143,8 @@ def g2_worker(out: dict, seed: int, clock_hz: float) -> None:
                 for _ in range(2))
             run = ((lambda: kernels.g2_add(fq, a, b)) if name == "g2_add"
                    else (lambda: kernels.g2_dbl(fq, a)))
-            out["digest"][f"{name}@{lanes}"] = _digest(run())
+            out["digest"][f"{name}@{lanes}"] = _digest(
+                tuple(fq.strict(c) for c in run()))
             out[f"{name}@{lanes}"] = time_ms(torch, run, 100, clock_hz)
         out[f"{name}_resident_warps"] = kernels.resident_warps(
             name, fq, torch.device("cuda"))
@@ -212,13 +216,17 @@ def worker(root: str, seed: int, clock_hz: float, curves_only: bool,
                "build_s": kernels.build_all((ed.FE, w.FQ_SM2))}
         curve_worker(out, seed, clock_hz)
         return out
-    if g2_only or round_only:
+    if round_only:
         out = {"root": root, "digest": {},
                "build_s": kernels.build_all((fq,))}
-        if round_only:
-            round_worker(out)
-        else:
-            g2_worker(out, seed, clock_hz)
+        round_worker(out)
+        return out
+    if g2_only:  # the G2 library alone
+        t = time.perf_counter()
+        kernels._library("g2_point", fq)
+        out = {"root": root, "digest": {},
+               "build_s": time.perf_counter() - t}
+        g2_worker(out, seed, clock_hz)
         return out
     kernels.build_all()
 

@@ -123,7 +123,8 @@ _G2_CACHE = {}
 
 def _g2_inputs(batch, device):
     """G2 (P, Q) lane pairs of _g1_inputs' three kinds over Fq2: random
-    points with identities, P + P and P + (−P), loose off-curve limbs."""
+    points with identities, P + P and P + (−P), loose off-curve limbs;
+    and a fourth, every limb of every coordinate at the loose bound."""
     if "pts" not in _G2_CACHE:
         rng = np.random.default_rng(62)
         _G2_CACHE["pts"] = [oracle.g2_mul(oracle.G2_GEN,
@@ -142,7 +143,19 @@ def _g2_inputs(batch, device):
     rng = np.random.default_rng(batch + 2)
     out.append(tuple(dev.Point(*(_loose(rng, 2 * batch).reshape(
         batch, 2, dev.FQ.n).to(device) for _ in range(3))) for _ in range(2)))
+    top = torch.full((batch, 2, dev.FQ.n), dev.FQ.loose_max,
+                     dtype=torch.int32, device=device)
+    out.append((dev.Point(top, top, top), dev.Point(top, top, top)))
     return out
+
+
+def _same_elements(got, want):
+    """Each output coordinate the same field elements as the plain
+    version's (the kernels choose their own limbs), every limb loose."""
+    assert all(0 <= int(a.min()) and int(a.max()) <= dev.FQ.loose_max
+               for a in got)
+    return all(torch.equal(dev.FQ.strict(a), dev.FQ.strict(b))
+               for a, b in zip(got, want))
 
 
 @pytest.mark.parametrize("op", ("add", "dbl"))
@@ -155,7 +168,7 @@ def test_g2_kernels_match_plain_at_ragged_sizes(cuda, batch, op):
         else:
             got, want = dev.G2.dbl(p), dev.G2.dbl_plain(p)
         assert kernels.counts()[f"g2_{op}"] == before + 1
-        assert all(torch.equal(a, b) for a, b in zip(got, want))
+        assert _same_elements(got, want)
 
 
 def test_g2_kernels_at_the_grouped_ladder_shape(cuda):
@@ -167,7 +180,7 @@ def test_g2_kernels_at_the_grouped_ladder_shape(cuda):
     for got, want in ((dev.G2.add(pk, qk), dev.G2.add_plain(pk, qk)),
                       (dev.G2.dbl(pk), dev.G2.dbl_plain(pk))):
         assert got.x.shape == (8, 3, 2, dev.FQ.n)
-        assert all(torch.equal(a, b) for a, b in zip(got, want))
+        assert _same_elements(got, want)
     pts = _G2_CACHE["pts"]
     a = dev.g2_from_oracle(pts[:6], cuda)
     b = dev.g2_from_oracle(pts[6:], cuda)
@@ -361,9 +374,9 @@ def _qc_inputs(lanes: int):
 
 
 def test_qc_device_steps_on_the_card_match_the_cpu(cuda):
-    """g1_validate_sum and g2_sum_rows at B = 8192 on the card (fq_mul and
-    g1_add kernels) are torch.equal to their run on the CPU (the plain
-    versions)."""
+    """g1_validate_sum and g2_sum_rows at B = 8192 on the card (fq_mul,
+    g1_add and g2_add kernels) are torch.equal to their run on the CPU
+    (the plain versions): both return canonical limbs."""
     from consensus_overlord_tpu_torch.crypto import cuda_provider as cp
 
     g1, g2 = _qc_inputs(8192)
@@ -375,6 +388,7 @@ def test_qc_device_steps_on_the_card_match_the_cpu(cuda):
     after = kernels.counts()
     assert after["fq_mul"] > before["fq_mul"]
     assert after["g1_add"] > before["g1_add"]
+    assert after["g2_add"] > before["g2_add"]
 
 
 def _signed_votes(n: int, h: bytes):

@@ -88,6 +88,23 @@ def test_so_path_follows_the_plan_header():
         assert path.startswith(kernels.BUILD_DIR)
 
 
+def test_so_path_follows_only_its_own_library_headers(monkeypatch):
+    """The G2 word header (ops/g2_words.py) and the word core
+    (csrc/fp381_words.cuh) name the g2_point build only: a change to
+    either rebuilds g2_point and no other library."""
+    text = kernels.plan_header(TFQ)
+    before = {lib: kernels._so_path(lib, text) for lib in kernels._LIBS}
+    name, g2_text = kernels.lib_header("g2_point")
+    monkeypatch.setattr(kernels, "lib_header", lambda lib: (
+        (name, g2_text + "// edited\n") if lib == "g2_point" else None))
+    after = {lib: kernels._so_path(lib, text) for lib in kernels._LIBS}
+    assert {lib for lib in before if before[lib] != after[lib]} == {
+        "g2_point"}
+    assert "fp381_words.cuh" not in kernels._HEADERS
+    assert kernels._LIB_HEADERS == {"g2_point": (("fp381_words.cuh",),
+                                                 "g2_words.h")}
+
+
 @pytest.mark.parametrize("group", kernels.GROUP_SIZES)
 def test_lane_group_terms_cover_every_term_once(group):
     _check_group_terms(group, TFQ)
@@ -167,10 +184,9 @@ def test_curve_lane_ops_count_each_kernel():
 
 @pytest.mark.parametrize("op", ["g2_add", "g2_dbl"])
 def test_g2_lane_ops_count_the_plain_formulas(op):
-    """chip_smoke.py's count for the G2 kernels is the Fq ops the plain
-    formulas run (CurveOps over Fq2Ops, the same op sequence as
-    csrc/g2_point.cu), tallied per element by a counting field on one
-    lane."""
+    """The G2 kernels' bound starts from the Fq ops the function runs
+    (ops/g2_words.py FUNCTION_FQ_OPS): the plain formulas' (CurveOps over
+    Fq2Ops), tallied per element by a counting field on one lane."""
     import torch
 
     from consensus_overlord_tpu_torch.crypto import bls12381 as oracle
@@ -210,10 +226,38 @@ def test_g2_lane_ops_count_the_plain_formulas(op):
     g2 = CurveOps(f2, lambda x: f2.mul_small_xi(x, 12), "counting")
     p = dev.g2_from_oracle([oracle.G2_GEN])
     g2.add(p, p) if op == "g2_add" else g2.dbl(p)
-    f = chip_smoke.field_ops(TFQ)
-    assert chip_smoke.lane_ops(TFQ)[op] == chip_smoke._ops(
-        *((c, f[k]) for k, c in tally.items()))
+    from consensus_overlord_tpu_torch.ops import g2_words
+
+    want = g2_words.FUNCTION_FQ_OPS[op]
+    smalls = {k: c for k, c in tally.items() if k.startswith("small")}
+    assert {k: c for k, c in tally.items() if k not in smalls} == {
+        k: want[k] for k in ("mul", "add", "sub")}
+    assert sum(smalls.values()) == want["small"]
     assert tally["mul"] == (36 if op == "g2_add" else 24)
+
+
+@pytest.mark.parametrize("op, products, redcs, quotients, imad, alu", [
+    ("g2_add", 42, 24, 12, 19824, 6084),
+    ("g2_dbl", 30, 20, 6, 15024, 3876)])
+def test_g2_lane_ops_count_the_word_programs(op, products, redcs, quotients,
+                                             imad, alu):
+    """chip_smoke.py's bound for the G2 kernels counts the least the
+    function needs in words (ops/g2_words.py bound_ops): the Karatsuba
+    Fq products and the six scale corrections (12 word rows each), a
+    REDC for each reduced value of the program, the entries' quotient
+    steps, priced per step as csrc/fp381_words.cuh writes them."""
+    from consensus_overlord_tpu_torch.ops import g2_words
+
+    prog = g2_words.ADD if op == "g2_add" else g2_words.DBL
+    steps = g2_words.bound_steps(prog)
+    assert steps["row"] == 12 * products
+    assert steps["redc_step"] == 12 * redcs
+    assert steps["quotient"] == quotients == len(prog.load)
+    ops = chip_smoke.lane_ops(TFQ)[op]
+    assert ops == g2_words.bound_ops(prog)
+    assert (ops["imad"], ops["alu"], ops["either"]) == (imad, alu, 0)
+    assert ops["imad"] == (24 * 12 * products + 25 * 12 * redcs
+                           + 32 * quotients + 24 * steps["small"])
 
 
 # (imad, alu, either) per lane, bytes in all, and the limit that binds.
