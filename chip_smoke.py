@@ -114,6 +114,26 @@ spill in any kernel fails the run.  Then
                    device calls > 0, the scheme's kernels launched, no
                    device fault, re-verify or breaker failure, every
                    proof audited on the host;
+  chaos            cell bls100-chaos: one in-process sim.run (sim/run.py
+                   main) of the JAX package's chaos acceptance run
+                   (--chaos --chaos-adaptive 1 --chaos-device-faults 1
+                   --validators 100 --seed 7) on BLS12-381 on the card,
+                   every verify of the fleet through one shared frontier
+                   over one CudaBlsCrypto("cuda"), with a tenant flood,
+                   the soak-chaos survival lane, the critical-path
+                   trace and /statusz (read once while it runs); launch
+                   counts set to 0 just before and read just after.  A
+                   non-zero exit, a safety violation, an unfired event
+                   of the schedule, a crashed node that never commits
+                   again, no adaptive switch, no frontier batch in the
+                   armed window, a shared breaker that never opened or
+                   ends open, a flood without sheds or with a verdict
+                   that is not False, a drift failure, no completed
+                   soak cycle, fewer than 5 telemetry samples, critical
+                   path shares off 1 by more than 0.05, a soak record
+                   the port's obs/ledger.py cannot load, a view change
+                   at a height no chaos event touched, or an idle kernel
+                   fails the run;
 
   pairing_ab       the warm single-hash round with device pairing off,
                    on, on, off (seconds, verifies/s), and the device
@@ -298,19 +318,53 @@ def field_ops(spec) -> dict:
     return f
 
 
+#: The Fq operations of the field product and of the a = 0 group law
+#: (Renes–Costello–Batina Algorithms 7 and 9), as word_ops prices them:
+#: products, the first stage's products (reduced one by one; each output
+#: is a sum of products of two of them, reduced once), additions and
+#: subtractions, small multiples (3b, 3, 8, 2), values loaded and stored.
+WORD_FUNCTIONS = {
+    "mul": {"mul": 1, "stage1": 0, "chain": 0, "small": 0, "load": 2,
+            "out": 1},
+    "add": {"mul": 12, "stage1": 6, "chain": 17, "small": 3, "load": 6,
+            "out": 3},
+    "dbl": {"mul": 8, "stage1": 4, "chain": 3, "small": 4, "load": 3,
+            "out": 3},
+}
+
+
+def word_ops(spec, fn: str) -> dict:
+    """int32 instructions per lane, by pipe, of the least the function
+    needs in 32-bit words (⌈bits/32⌉: 12 for BLS12-381's Fq, 8 for the
+    256-bit fields), by the rule of ops/g2_words.py bound_steps: a word
+    product for each Fq product and for each output's Montgomery scale
+    correction, a REDC for each first-stage product and two for each
+    output (its sum, its correction), a carry chain for each addition or
+    subtraction, a small multiple for each product by a constant, and the
+    entry (repack and quotient step) of each value loaded from limbs and
+    the exit of each stored."""
+    from consensus_overlord_tpu_torch.ops import g2_words
+
+    words = -(-spec.p.bit_length() // 32)
+    f = WORD_FUNCTIONS[fn]
+    return g2_words.price_steps(
+        {"row": words * (f["mul"] + f["out"]),
+         "redc_step": words * (f["stage1"] + 2 * f["out"]),
+         "chain": f["chain"], "small": f["small"],
+         "quotient": f["load"], "entry": f["load"], "exit": f["out"]},
+        g2_words.step_ops(words, spec.n))
+
+
 def lane_ops(spec) -> dict:
-    """int32 instructions per lane of each kernel, by pipe, counted from
-    its field ops; the G2 kernels' from the least their function needs in
-    the word representation (ops/g2_words.py bound_ops); the pairing
-    kernels' from their programs' op counts (ops/tower_program.py)."""
+    """int32 instructions per lane of each kernel, by pipe: the field and
+    G1 kernels' and the G2 kernels' from the least their function needs
+    in 32-bit words (word_ops; ops/g2_words.py bound_ops), not from the
+    10-bit limb program as written; the pairing kernels' from their
+    programs' op counts over the limb field ops (ops/tower_program.py)."""
     from consensus_overlord_tpu_torch.ops import g2_words, tower_program
     f = field_ops(spec)
-    g1_add = _ops((12, f["mul"]), (12, f["add"]), (5, f["sub"]),
-                  (1, f["small3"]), (2, f["small12"]))
-    g1_dbl = _ops((8, f["mul"]), (2, f["add"]), (1, f["sub"]),
-                  (1, f["small8"]), (1, f["small12"]), (1, f["small3"]),
-                  (1, f["small2"]))
-    out = {"fq_mul": f["mul"], "g1_add": g1_add, "g1_dbl": g1_dbl,
+    out = {"fq_mul": word_ops(spec, "mul"), "g1_add": word_ops(spec, "add"),
+           "g1_dbl": word_ops(spec, "dbl"),
            "g2_add": g2_words.bound_ops(g2_words.ADD),
            "g2_dbl": g2_words.bound_ops(g2_words.DBL)}
     for name in PAIRING:
@@ -397,10 +451,11 @@ def kernel_checks(torch, launches: dict, operands, card: dict,
                   zip(got, want))
         bound_ms, bound_by = bound(ops[name], lanes, lane_bytes * lanes,
                                    card["clock_hz"])
-        return {"max_abs_err": err,
-                "ms": time_ms(torch, run, 100, card["clock_hz"]),
+        ms = time_ms(torch, run, 100, card["clock_hz"])
+        return {"max_abs_err": err, "ms": ms,
                 "plain_ms": time_ms(torch, plain, 10, card["clock_hz"]),
-                "bound_ms": bound_ms, "bound_by": bound_by}
+                "bound_ms": bound_ms, "bound_by": bound_by,
+                "time_over_bound": ms / bound_ms}
 
     field = [k for k in kernels.BLS_KERNELS
              if k.name in ("fq_mul", "g1_add", "g1_dbl")]
@@ -871,7 +926,9 @@ def trace_round(torch, prov, sigs, h, pks) -> dict:
 #: Python process carries every engine (BASELINE.md:378, :386-388).
 SIM_VALIDATORS = 64
 SIM_WARM_HEIGHTS = 1
-SIM_HEIGHTS = 3
+#: Measured heights: 2 keep the whole smoke, chaos phase included, well
+#: inside its time limit.
+SIM_HEIGHTS = 2
 #: The block interval.  At 2 s the fleet never committed height 1 on an
 #: H100 80GB HBM3 (700 W): its host work outran the round timers and
 #: every node verified 63 chokes a round.  At 10 s no view change.
@@ -1259,7 +1316,9 @@ def sim_fleet(torch, kernels, seed: int) -> dict:
 #: "cuda" on every node.
 SERVICE_VALIDATORS = 64
 SERVICE_WARM_HEIGHTS = 1
-SERVICE_HEIGHTS = 3
+#: Measured heights: 2 keep the whole smoke, chaos phase included, well
+#: inside its time limit.
+SERVICE_HEIGHTS = 2
 #: The controller's block interval, in seconds (ConsensusConfiguration
 #: carries whole seconds).  The round timers are ratios of it (prevote
 #: and precommit 1x, propose 1.5x), and one process verifies all 64
@@ -1644,6 +1703,276 @@ def service_fleet(kernels) -> dict:
            or m == "consensus_overlord_tpu" for m in sys.modules):
         fail("service: the service imported JAX or the JAX package")
     return out
+
+
+# -- the chaos acceptance run ------------------------------------------------------
+
+#: Cell bls100-chaos: the JAX package's chaos acceptance run
+#: (consensus_overlord_tpu/sim/README.md:134-140: sim.run --chaos
+#: --chaos-adaptive 1 --chaos-device-faults 1 --validators 100 --seed 7)
+#: on BLS12-381 on the card, every validator's verifies through one
+#: shared frontier over one CudaBlsCrypto("cuda"), with a tenant flood
+#: and the soak-chaos survival lane on top.
+CHAOS_VALIDATORS = 100
+#: The block interval: the healthy heights' work (about 200 QC verifies
+#: a height through the one shared provider) must fit the round timers
+#: (1.5 and 1.0 intervals) with room to spare.
+CHAOS_INTERVAL_MS = 6000
+CHAOS_THRESHOLD = 8
+#: Target heights: the schedule's 7 events and a height of post-fault
+#: runway; the 5 legacy draws land on distinct heights in
+#: [2, CHAOS_HEIGHTS - 1].
+CHAOS_HEIGHTS = 8
+#: Heights an adversary stays armed: a cut of the upstream run, whose
+#: default, max(2, min(n, 12)), is 12 heights at 100 validators.  A
+#: height takes about 12.5 s on the card here, so the initial schedule's
+#: window and one soak cycle's would add about 250 s to a phase budgeted
+#: at 240 s; 2 still covers the target's turn to lead (it is picked to
+#: lead two heights after it is armed, and withholds as soon as it is
+#: about to).
+CHAOS_BYZ_WINDOW = 2
+#: Each recurring soak cycle's schedule spans 4 heights: its 7 events
+#: land on 2 heights (the generator reuses heights when the span is
+#: short), so a cycle plays out in about 5 heights.
+CHAOS_SOAK_S = 100.0
+CHAOS_CYCLE_HEIGHTS = 4
+CHAOS_SAMPLE_EVERY_S = 2.0
+CHAOS_TIMEOUT_S = 120.0
+#: The kernels the phase must launch (fq_inv is reported).
+CHAOS_KERNELS = ("fq_mul", "g1_add", "g1_dbl", "g2_add", "g2_dbl") + PAIRING
+#: /statusz sections the live read must find.
+CHAOS_SECTIONS = ("consensus", "crypto", "commits", "trend", "alerts",
+                  "fleet", "router", "profile")
+
+
+def chaos_argv(seed: int, tmp: str) -> list:
+    """sim.run's arguments for cell bls100-chaos (files under tmp)."""
+    return ["--crypto", "bls", "--device", "cuda",
+            "--validators", str(CHAOS_VALIDATORS), "--seed", str(seed),
+            "--chaos", "--chaos-adaptive", "1", "--chaos-device-faults", "1",
+            "--shared-frontier", "--chaos-tenant-floods", "1",
+            "--chaos-byz-window", str(CHAOS_BYZ_WINDOW),
+            "--soak-chaos", "--soak-seconds", str(CHAOS_SOAK_S),
+            "--sample-every", str(CHAOS_SAMPLE_EVERY_S),
+            "--soak-cycle-heights", str(CHAOS_CYCLE_HEIGHTS),
+            "--soak-record", os.path.join(tmp, "soak_record.json"),
+            "--soak-out", os.path.join(tmp, "soak_samples.jsonl"),
+            "--critpath-out", os.path.join(tmp, "critpath.json"),
+            "--statusz-port", "0",
+            "--interval-ms", str(CHAOS_INTERVAL_MS),
+            "--device-threshold", str(CHAOS_THRESHOLD),
+            "--heights", str(CHAOS_HEIGHTS),
+            "--timeout", str(CHAOS_TIMEOUT_S)]
+
+
+def _chaos_touched(events) -> set:
+    """Heights a chaos event may disturb.  An event fires as its height
+    commits, so it first disturbs the next height; it may disturb every
+    height of its window (an adversary's `heights`, else one) and the
+    height after it."""
+    out = set()
+    for e in events:
+        h = e["fired_height"]
+        out.update(range(h + 1, h + max(e.get("heights", 0), 1) + 2))
+    return out
+
+
+def chaos_report(out: dict, net, statusz: dict, launches: dict,
+                 wall_s: float, record, critpath: dict,
+                 expected_events: int) -> dict:
+    """The chaos phase line from sim.run's summary, the live fleet, the
+    /statusz read and the launch counts, and the list of the phase's
+    failed conditions (empty when it passed)."""
+    ch = out.get("chaos", {})
+    sc = out.get("soak_chaos", {})
+    metrics = out.get("metrics", {})
+    transitions = {to: metrics.get(
+        f"crypto_breaker_transitions_total{{to={to}}}", 0)
+        for to in ("open", "half_open", "closed")}
+    floods = list(ch.get("tenant_floods", [])) + [
+        f for c in sc.get("cycles", []) for f in c["tenant_floods"]]
+    cycles = sc.get("cycles", [])
+    complete = [c for c in cycles if c["events_skipped"] == 0
+                and c["events_fired"] == expected_events]
+    # Every crash that the chain outlived by two heights (the soak loop
+    # may end a height after a cycle's last crash): the node must commit
+    # a height after its restart.
+    final = net.controller.latest_height
+    crashes = [(e["node"], e["fired_height"])
+               for e in ch.get("events", []) + [
+                   e for c in cycles for e in c["events"]]
+               if e["kind"] == "crash" and e["fired_height"] + 2 <= final]
+    committed = {}
+    for node, h, _ in net.controller.commit_log:
+        committed[node] = max(committed.get(node, 0), h)
+    rejoined = [(i, h, committed.get(net.nodes[i].name, 0) > h)
+                for i, h in crashes]
+    changes = {}
+    for n in net.nodes:
+        for h, r, why in n.adapter.view_changes:
+            changes.setdefault(h, set()).add(why)
+    touched = _chaos_touched(ch.get("events", []) + [
+        e for c in cycles for e in c["events"]])
+    healthy = [h for h in range(1, final + 1) if h not in touched]
+    healthy_changes = sorted(h for h in healthy if h in changes)
+    cp = critpath.get("critpath", {})
+    shares = cp.get("summary", {}).get("stage_shares", {})
+    trace_sums = [sum(t["shares"].values()) for t in cp.get("traces", [])]
+    doc = {
+        "phase": "chaos", "deployment": "bls100-chaos",
+        "validators": out["validators"], "heights": out["heights"],
+        "interval_ms": CHAOS_INTERVAL_MS,
+        "device_threshold": CHAOS_THRESHOLD,
+        "byz_window": CHAOS_BYZ_WINDOW, "soak_seconds": CHAOS_SOAK_S,
+        "cycle_heights": CHAOS_CYCLE_HEIGHTS,
+        "wall_s": wall_s, "total_s": out["total_s"],
+        "runway_s": out["runway_s"],
+        "ms_per_height": out["ms_per_height"], "p50_ms": out["p50_ms"],
+        "p95_ms": out["p95_ms"],
+        "final_height": final,
+        "events_fired": ch.get("events_fired"),
+        "events_skipped": ch.get("events_skipped"),
+        "events": [(e["kind"], e["fired_height"], e["node"])
+                   for e in ch.get("events", [])],
+        "safety_violations": ch.get("safety_violations"),
+        "crashed_rejoined": rejoined,
+        "adaptive_switches": out.get("adversary", {}).get(
+            "adaptive_switch", 0),
+        "frontier_marks": [m["batches_at_disarm"] - m["batches_at_arm"]
+                           for m in ch.get("frontier_marks", [])
+                           if m["batches_at_disarm"] is not None],
+        "breaker_transitions": transitions,
+        "shared_breaker": out.get("shared_crypto_status", {}).get("state"),
+        "shared_calls": out.get("shared_crypto_status", {}).get("calls"),
+        "sheds": out.get("frontier_sheds"),
+        "floods": floods,
+        "frontier_batches": out.get("frontier_batches"),
+        "frontier_mean_lanes": out.get("frontier_mean_batch"),
+        "frontier_max_lanes": out.get("frontier_max_batch"),
+        "soak": {"cycles": len(cycles), "complete_cycles": len(complete),
+                 "cycle_events": [(c["events_fired"], c["events_skipped"])
+                                  for c in cycles],
+                 "soak_heights": sc.get("soak_heights"),
+                 "soak_wall_s": sc.get("soak_wall_s"),
+                 "drift_failures": sc.get("drift_failures"),
+                 "dims": sc.get("soak", {})},
+        "telemetry_samples": out["telemetry"]["samples"],
+        "critpath_commits": out["critpath"]["commits"],
+        "critpath_shares": shares,
+        "critpath_traces": len(trace_sums),
+        "record": {"metric": record.metric, "value": record.value,
+                   "unit": record.unit} if record is not None else None,
+        "view_changes": {h: sorted(w) for h, w in sorted(changes.items())},
+        "healthy_heights": healthy,
+        "statusz_sections": sorted(statusz),
+        "launches": launches,
+    }
+    bad = []
+    if ch.get("safety_violations") or sc.get("soak", {}).get(
+            "safety_violations"):
+        bad.append("safety violations")
+    if ch.get("events_skipped") or ch.get("events_fired") != expected_events:
+        bad.append("not every scheduled event fired")
+    if not rejoined or not all(ok for _, _, ok in rejoined):
+        bad.append("a crashed node never committed after its restart")
+    if not doc["adaptive_switches"]:
+        bad.append("no adaptive tactic switch")
+    if not any(d > 0 for d in doc["frontier_marks"]):
+        bad.append("no frontier batch during an armed window")
+    if not transitions["open"] or doc["shared_breaker"] != "closed":
+        bad.append("the shared breaker did not open and close again")
+    if not doc["sheds"] or not floods or any(
+            f["sheds"] <= 0 or f["rejected"] != f["sent"] for f in floods):
+        bad.append("a flood shed nothing or had a verdict that was not "
+                   "False")
+    if sc.get("drift_failures") != [] or not complete:
+        bad.append("a drift gate failed or no soak cycle completed")
+    if out["telemetry"]["samples"] < 5:
+        bad.append("fewer than 5 telemetry samples")
+    if not trace_sums or any(abs(x - 1.0) > 0.05 for x in
+                             trace_sums + [sum(shares.values())]):
+        bad.append("critical-path shares do not sum to 1")
+    if record is None or record.metric != "soak-chaos-survival":
+        bad.append("the soak record does not load")
+    if healthy_changes:
+        bad.append(f"view changes at healthy heights {healthy_changes}")
+    missing = [k for k in CHAOS_SECTIONS if k not in statusz]
+    if missing:
+        bad.append(f"/statusz lacks {missing}")
+    idle = [k for k in CHAOS_KERNELS if not launches.get(k)]
+    if idle:
+        bad.append(f"never launched {idle}")
+    return doc, bad
+
+
+def chaos_fleet(kernels, seed: int, card: str) -> dict:
+    """Cell bls100-chaos: one in-process sim.run of the chaos acceptance
+    run on the card (chaos_argv), with the launch counts set to 0 just
+    before and read just after, /statusz read once while it runs, then
+    the soak record loaded through the port's obs/ledger.py and every
+    condition of chaos_report checked."""
+    import contextlib
+    import tempfile
+    import threading
+    import urllib.request
+
+    from consensus_overlord_tpu_torch.obs import ledger
+    from consensus_overlord_tpu_torch.sim import run as sim_run
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_chaos_")
+    live = {}
+
+    def read_statusz(net, port):
+        t_end = time.monotonic() + 600
+        while (net.controller.latest_height < 3
+               and time.monotonic() < t_end):
+            time.sleep(0.2)
+        try:
+            with urllib.request.urlopen(
+                    f"http://127.0.0.1:{port}/statusz", timeout=30) as r:
+                live["statusz"] = json.loads(r.read())
+        except Exception as e:  # noqa: BLE001 — reported as a failure
+            live["statusz_error"] = repr(e)
+
+    def on_start(net, port):
+        live["net"] = net
+        live["reader"] = threading.Thread(target=read_statusz,
+                                          args=(net, port), daemon=True)
+        live["reader"].start()
+
+    log_path = os.path.join(tmp, "sim_run.log")
+    kernels.reset_counts()
+    t0 = time.perf_counter()
+    try:
+        with open(log_path, "w") as log, contextlib.redirect_stdout(log):
+            out = sim_run.main(chaos_argv(seed, tmp), on_start=on_start)
+    except (SystemExit, Exception) as e:  # noqa: BLE001 — reported
+        with open(log_path) as f:
+            tail = f.read()[-4000:]
+        fail(f"chaos: sim.run failed ({type(e).__name__}: {e}); its "
+             f"output ended:\n{tail}")
+    wall = time.perf_counter() - t0
+    launches = kernels.counts()
+    live["reader"].join(timeout=30)
+    record = ledger.load_record(os.path.join(tmp, "soak_record.json"),
+                                run="bls100-chaos")
+    with open(os.path.join(tmp, "critpath.json")) as f:
+        critpath = json.load(f)
+    expected = 2 + 1 + 1 + 1 + 1 + 1  # crashes, stall, partition,
+    # device fault, adaptive, tenant flood
+    doc, bad = chaos_report(out, live["net"], live.get("statusz", {}),
+                            {k: launches[k] for k in CHAOS_KERNELS
+                             + ("fq_inv",)}, wall, record, critpath,
+                            expected)
+    doc["card"] = card
+    if "statusz_error" in live:
+        bad.append(f"/statusz read failed: {live['statusz_error']}")
+    if any(m == "jax" or m.startswith(("jax.", "consensus_overlord_tpu."))
+           or m == "consensus_overlord_tpu" for m in sys.modules):
+        bad.append("the fleet imported JAX or the JAX package")
+    if bad:
+        fail(f"chaos: {'; '.join(bad)}: {json.dumps(doc, default=str)}")
+    return doc
 
 
 # -- main path -------------------------------------------------------------------
@@ -2279,8 +2608,10 @@ def curve_bad_batch(scheme: str, keys, h, pks, sigs):
 
 def curve_lane_ops(spec) -> dict:
     """int32 instructions per lane of the 26-limb fields' kernels, by
-    pipe, counted from their field ops (csrc/ed_point.cu,
-    g1_point.cu built with 3b = 21, wp_point.cu)."""
+    pipe: the field product and secp256k1's a = 0 group law (g1_point.cu
+    built with 3b = 21) from the least they need in 8 words (word_ops);
+    the Edwards and general-a kernels (csrc/ed_point.cu, wp_point.cu) from
+    their field ops over 10-bit limbs."""
     from consensus_overlord_tpu_torch.ops import kernels
 
     f = field_ops(spec)
@@ -2289,23 +2620,18 @@ def curve_lane_ops(spec) -> dict:
         ed_add = _ops((9, f["mul"]), (5, f["add"]), (4, f["sub"]))
         # Per bit two adds and a select of four coordinates.
         select = {"imad": 0, "alu": 0, "either": 4 * spec.n}
-        return {"fq_mul_ed25519": f["mul"], "ed_add": ed_add,
+        return {"fq_mul_ed25519": word_ops(spec, "mul"), "ed_add": ed_add,
                 "ed_ladder": _ops((2 * LADDER_BITS, ed_add),
                                   (LADDER_BITS, select))}
     if name == "secp256k1_fq":
-        return {"fq_mul_secp256k1": f["mul"],
-                "secp_add": _ops((12, f["mul"]), (12, f["add"]),
-                                 (5, f["sub"]), (1, f["small3"]),
-                                 (2, f["small21"])),
-                "secp_dbl": _ops((8, f["mul"]), (2, f["add"]),
-                                 (1, f["sub"]), (1, f["small8"]),
-                                 (1, f["small21"]), (1, f["small3"]),
-                                 (1, f["small2"]))}
+        return {"fq_mul_secp256k1": word_ops(spec, "mul"),
+                "secp_add": word_ops(spec, "add"),
+                "secp_dbl": word_ops(spec, "dbl")}
     wp_add = _ops((14, f["mul"]), (15, f["add"]), (6, f["sub"]),
                   (4, f["small3"]), (3, f["neg"]))
     # Per window LADDER_WINDOW doublings and two table adds.
     window = kernels.LADDER_WINDOW
-    return {"fq_mul_sm2": f["mul"], "wp_add_general": wp_add,
+    return {"fq_mul_sm2": word_ops(spec, "mul"), "wp_add_general": wp_add,
             "wp_dual_ladder": _ops(((window + 2) * (LADDER_BITS // window),
                                     wp_add))}
 
@@ -2554,6 +2880,7 @@ def curve_kernel_checks(torch, kernels, sizes: dict, launches: dict,
                    "replaces": k.replaces, "launches": launches[name],
                    "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                    "bound_ms": bound_ms, "bound_by": bound_by,
+                   "time_over_bound": ms / bound_ms,
                    "library_ms": None, "lanes": lanes,
                    "plain_lanes": plain_lanes}
             rows.append(row)
@@ -2561,7 +2888,6 @@ def curve_kernel_checks(torch, kernels, sizes: dict, launches: dict,
                                             torch.device("cuda"))
                      if name in kernels._OCCUPANCY else None)
             phase["kernels"].append({**row,
-                                     "time_over_bound": ms / bound_ms,
                                      "registers": regs.get("registers"),
                                      "spill_stores": regs["spill_stores"],
                                      "resident_warps": warps, **extra})
@@ -2764,6 +3090,7 @@ def main(argv=None) -> int:
         curve_sizes.update(sizes)
         curve_launches.update(doc["launches"])
     emit(curves_sim(torch, kernels, args.seed))
+    emit(chaos_fleet(kernels, args.seed, smi))
 
     # Host-clock phases first: the profiled round runs last.
     emit(pairing_ab(torch, prov, s0, sigs[0], hashes[0], pks,

@@ -1,7 +1,9 @@
 """Device circuit breaker: route crypto around a sick accelerator.
 
 The port's own copy of consensus_overlord_tpu/crypto/breaker.py (it is
-stdlib-only), unchanged in behaviour.
+stdlib-only), unchanged in behaviour but for one repair: a fault window
+counts only the successes of device calls admitted under it (see
+`record_success`'s `epoch`).
 
 A consensus validator must keep voting even when its GPU starts failing —
 a CUDA runtime error, a wedged readback, or a dying card must degrade
@@ -103,6 +105,10 @@ class CircuitBreaker:
         #: driving the real open → fallback → half-open → closed cycle.
         self._inject_until: Optional[float] = None
         self._inject_min_left = 0
+        #: Bumped by every inject_faults(): raise_if_injected() hands the
+        #: current value to the call it admits, and record_success(epoch)
+        #: ignores a call admitted before the latest window was armed.
+        self._inject_epoch = 0
         self.total_injected = 0
 
     # -- decision ----------------------------------------------------------
@@ -150,8 +156,12 @@ class CircuitBreaker:
         otherwise see too few device calls to ever trip the breaker,
         and the chaos schedule's open→half-open→closed obligation would
         silently evaporate.  Chaos passes the breaker's own
-        failure_threshold, guaranteeing the open."""
+        failure_threshold, guaranteeing the open: every call admitted
+        while the window is armed fails, and a call admitted before it
+        that resolves cleanly inside it cannot reset the count (its
+        success, reported with its epoch, is ignored)."""
         with self._lock:
+            self._inject_epoch += 1
             self._inject_until = self._clock() + duration_s
             self._inject_min_left = max(int(min_faults), 0)
         logger.warning("device breaker: fault injection armed for %.2fs"
@@ -182,14 +192,16 @@ class CircuitBreaker:
         with self._lock:
             return self._inject_armed_locked()
 
-    def raise_if_injected(self, path: str = "") -> None:
+    def raise_if_injected(self, path: str = "") -> int:
         """Device paths call this right after winning allow(): raises
         InjectedDeviceFault while a fault window is armed, flowing
         through the caller's normal device-failure handling
-        (record_failure + host-oracle fallback)."""
+        (record_failure + host-oracle fallback).  Otherwise returns the
+        fault-window epoch the call was admitted under, for its
+        record_success(epoch)."""
         with self._lock:
             if not self._inject_armed_locked():
-                return
+                return self._inject_epoch
             self.total_injected += 1
             if self._inject_min_left > 0:
                 self._inject_min_left -= 1
@@ -198,8 +210,16 @@ class CircuitBreaker:
 
     # -- outcomes ----------------------------------------------------------
 
-    def record_success(self) -> None:
+    def record_success(self, epoch: Optional[int] = None) -> None:
+        """A clean device call.  `epoch` is what raise_if_injected()
+        returned when the call was admitted: a call admitted before the
+        latest fault window was armed ran on a device that was not yet
+        failing, so its success neither resets the failure count nor
+        closes the breaker (else calls in flight across the window's
+        start can spend its min_faults without opening it)."""
         with self._lock:
+            if epoch is not None and epoch != self._inject_epoch:
+                return
             self._consecutive_failures = 0
             self._probe_inflight = False
             if self._state != CLOSED:

@@ -553,8 +553,10 @@ class CudaBlsCrypto:
             self.metrics.device_failures.labels(path=path).inc()
             self.metrics.host_fallbacks.labels(path=path).inc()
 
-    def _device_succeeded(self) -> None:
-        self.breaker.record_success()
+    def _device_succeeded(self, epoch: int) -> None:
+        """A clean device call admitted under fault-window `epoch` (what
+        breaker.raise_if_injected returned at its dispatch)."""
+        self.breaker.record_success(epoch)
 
     def _pairing_failed(self, exc: BaseException) -> None:
         """One injected device pairing dispatch/readback failure: feed the
@@ -713,6 +715,34 @@ class CudaBlsCrypto:
                 out.append(row >= 0 and self._verify_one_cached(s, h, v))
         return out
 
+    def _host_verify_aggregated(self, agg_sig: bytes, hash32: bytes,
+                                voters: Sequence[bytes]) -> bool:
+        """A QC on the host oracle: the voters' cached points (a key not
+        seen yet is validated into the cache first, by _pk_rows_of) are
+        summed and paired, and a key the cache knows bad fails the QC, as
+        CpuBlsCrypto's subgroup check would.  The verdict is
+        CpuBlsCrypto's."""
+        if not voters:  # as CpuBlsCrypto: an empty QC never verifies
+            return False
+        rows = self._pk_rows_of(voters)
+        aff = self._pk.aff
+        if any(r < 0 for r in rows):
+            return False
+        try:
+            sig_pt = oracle.g1_decompress(agg_sig)
+        except ValueError:
+            return False
+        if sig_pt is None or not oracle.g1_in_subgroup(sig_pt):
+            return False
+        agg_pk = None
+        for r in rows:
+            agg_pk = oracle.g2_add(agg_pk, aff[r])
+        if agg_pk is None:
+            return False
+        h = oracle.hash_to_g1(hash32, self._common_ref)
+        return oracle.multi_pairing_is_one([(sig_pt, _NEG_G2_ORACLE),
+                                            (h, agg_pk)])
+
     # -- provider surface ----------------------------------------------------
 
     @property
@@ -765,7 +795,7 @@ class CudaBlsCrypto:
         call = self._prof_begin("aggregate", n)
         with _ISSUE:
             try:
-                self.breaker.raise_if_injected("aggregate")
+                epoch = self.breaker.raise_if_injected("aggregate")
                 self._count("aggregate", "device")
                 t0 = time.perf_counter()
                 size = _pad_to(n)
@@ -800,7 +830,7 @@ class CudaBlsCrypto:
                 call.finish(ok=False)
                 self._device_failed("aggregate", e)
                 return self._cpu.aggregate_signatures(signatures, voters)
-            self._device_succeeded()
+            self._device_succeeded(epoch)
             call.observe("readback", time.perf_counter() - t0)
             if not bool(valid[:n].all()):
                 call.finish(ok=False)  # the call raised — never ring ok
@@ -822,12 +852,12 @@ class CudaBlsCrypto:
         if (len(voters) < self._qc_threshold
                 or not self._device_allowed("verify_aggregated")):
             self._count("verify_aggregated", "host")
-            return lambda: self._cpu.verify_aggregated_signature(
+            return lambda: self._host_verify_aggregated(
                 agg_sig, hash32, voters)
         call = self._prof_begin("verify_aggregated", len(voters))
         with _ISSUE:
             try:
-                self.breaker.raise_if_injected("verify_aggregated")
+                epoch = self.breaker.raise_if_injected("verify_aggregated")
                 t0 = time.perf_counter()
                 idx = self._pk_rows_of(voters)
                 if (idx < 0).any():
@@ -854,7 +884,7 @@ class CudaBlsCrypto:
             except Exception as e:  # noqa: BLE001 — see _injected
                 call.finish(ok=False)
                 self._device_failed("verify_aggregated", e)
-                return lambda: self._cpu.verify_aggregated_signature(
+                return lambda: self._host_verify_aggregated(
                     agg_sig, hash32, voters)
 
         # The verdict is enqueued right behind the pubkey sum: the
@@ -897,9 +927,9 @@ class CudaBlsCrypto:
             except Exception as e:  # noqa: BLE001 — see _injected
                 call.finish(ok=False)
                 self._device_failed("verify_aggregated", e)
-                return self._cpu.verify_aggregated_signature(
+                return self._host_verify_aggregated(
                     agg_sig, hash32, voters)
-            self._device_succeeded()
+            self._device_succeeded(epoch)
             call.observe("readback", time.perf_counter() - t0)
             t0 = time.perf_counter()
             try:
@@ -934,7 +964,7 @@ class CudaBlsCrypto:
                                                 path="verify_aggregated")
                         except Exception as e:  # noqa: BLE001 — _injected
                             self._device_failed("verify_aggregated", e)
-                            return self._cpu.verify_aggregated_signature(
+                            return self._host_verify_aggregated(
                                 agg_sig, hash32, voters)
                     result = self._host_pairing_aggregated(host_sig, hash32,
                                                            agg)
@@ -1001,13 +1031,13 @@ class CudaBlsCrypto:
         # sub-batch profiles itself).
         call = self._prof_begin("verify_batch", n)
         try:
-            self.breaker.raise_if_injected("verify_batch")
+            epoch = self.breaker.raise_if_injected("verify_batch")
             if len(groups) == 1:
                 return self._dispatch_single_hash(
-                    signatures, bytes(hashes[0]), voters, n, call)
+                    signatures, bytes(hashes[0]), voters, n, call, epoch)
             if len(groups) <= _GROUP_SIZES[-1]:
                 return self._dispatch_multi_hash(signatures, voters, n,
-                                                 groups, call)
+                                                 groups, call, epoch)
         except Exception as e:  # noqa: BLE001 — see _injected
             call.finish(ok=False)
             self._device_failed("verify_batch", e)
@@ -1109,7 +1139,7 @@ class CudaBlsCrypto:
         return dev.FQ.from_int(h_pt[0]), dev.FQ.from_int(h_pt[1])
 
     @_issuing
-    def _dispatch_single_hash(self, signatures, h, voters, n, call):
+    def _dispatch_single_hash(self, signatures, h, voters, n, call, epoch):
         self._count("verify_batch", "device")
         t0 = time.perf_counter()
         (size, sx, ssign, sinf, sok, wpacked, rows,
@@ -1141,11 +1171,11 @@ class CudaBlsCrypto:
 
         return self._batch_resolver(
             out, verdict_dev, size, n, pk_ok, host_pairing, signatures,
-            [h] * n, voters, f"single-hash batch n={n}", call)
+            [h] * n, voters, f"single-hash batch n={n}", call, epoch)
 
     @_issuing
     def _dispatch_multi_hash(self, signatures, voters, n,
-                             groups: Dict[bytes, List[int]], call):
+                             groups: Dict[bytes, List[int]], call, epoch):
         self._count("verify_batch", "device")
         t0 = time.perf_counter()
         (size, sx, ssign, sinf, sok, wpacked, rows,
@@ -1193,11 +1223,12 @@ class CudaBlsCrypto:
 
         return self._batch_resolver(
             out, verdict_dev, size, n, pk_ok, host_pairing, signatures,
-            lane_hashes, voters, f"{len(ghashes)}-hash batch n={n}", call)
+            lane_hashes, voters, f"{len(ghashes)}-hash batch n={n}", call,
+            epoch)
 
     def _batch_resolver(self, out, verdict_dev, size, n, pk_ok,
                         host_pairing, signatures, lane_hashes, voters,
-                        what: str, call):
+                        what: str, call, epoch: int):
         """resolve() of a dispatched verify round: read back the validity
         bitmap (every output when the host pairs), take the device
         verdict or pair on the host, and localize a failed relation lane
@@ -1220,7 +1251,7 @@ class CudaBlsCrypto:
                 call.finish(ok=False)
                 self._device_failed("verify_batch", e)
                 return self._host_verify(signatures, lane_hashes, voters)
-            self._device_succeeded()
+            self._device_succeeded(epoch)
             t0 = self._observe_phase("readback", t0, call)
             try:
                 v = valid[:n] & pk_ok
@@ -1329,7 +1360,7 @@ class CudaBlsCrypto:
                 return
             n = len(fresh)
             try:
-                self.breaker.raise_if_injected("update_pubkeys")
+                epoch = self.breaker.raise_if_injected("update_pubkeys")
                 self._count_pubkeys("device")
                 size = _pad_to(n)
                 parsed = dev.parse_g2_compressed(fresh)
@@ -1352,7 +1383,7 @@ class CudaBlsCrypto:
                 self._device_failed("update_pubkeys", e)
                 self._update_pubkeys_host(fresh)
                 return
-            self._device_succeeded()
+            self._device_succeeded(epoch)
             self._pk.append(fresh, px, py, pz,
                             _g2_oracle_points(ax, ay, ainf, valid), valid)
             self._pk_dev = self._pk_tab = None  # the device copies are stale

@@ -336,7 +336,7 @@ class SimDeviceCrypto:
                 self.metrics.host_fallbacks.labels(path=path).inc()
             return fn(*args)
         try:
-            self.breaker.raise_if_injected(path)
+            epoch = self._raise_chaos_fault(path)
         except Exception as e:  # noqa: BLE001 — injected device fault
             self.breaker.record_failure(f"{path}: {type(e).__name__}")
             if self.metrics is not None:
@@ -351,7 +351,7 @@ class SimDeviceCrypto:
             return fn(*args)
         if self.prof is None:
             result = fn(*args)
-            self.breaker.record_success()
+            self._record_device_success(epoch)
             return result
         call = self.prof.begin(path, batch)
         call.pad(batch, batch)  # no pad ladder: the sim batch ships as-is
@@ -364,8 +364,25 @@ class SimDeviceCrypto:
             raise
         call.observe("dispatch", time.perf_counter() - t0)
         call.finish()
-        self.breaker.record_success()
+        self._record_device_success(epoch)
         return result
+
+    def _raise_chaos_fault(self, path: str) -> int:
+        """Raise the armed chaos fault, if any: the breaker's injected
+        fault window (chaos `device_fault`, crypto/breaker.py
+        inject_faults), which stays armed past its wall-clock window
+        until its `min_faults` have landed.  Returns the window epoch the
+        call was admitted under.  The JAX package's twin also raises the
+        mesh windows (`device_loss`, `dcn_stall`) here; they need the
+        MeshSupervisor (ROADMAP item 14)."""
+        return self.breaker.raise_if_injected(path)
+
+    def _record_device_success(self, epoch: int) -> None:
+        """A clean device call admitted under window `epoch`: the breaker
+        counts it (a half-open probe closes it) unless a fault window
+        was armed since.  The MeshSupervisor's ladder, which the JAX
+        package's twin also feeds here, comes with ROADMAP item 14."""
+        self.breaker.record_success(epoch)
 
     def verify_signature(self, signature: bytes, hash32: bytes,
                          voter: bytes) -> bool:

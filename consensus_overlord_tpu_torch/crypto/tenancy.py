@@ -355,6 +355,13 @@ class SharedFrontier:
         # flushes so pipelining stays deterministic.
         self._dispatcher = ThreadPoolExecutor(
             max_workers=1, thread_name_prefix="frontier-dispatch")
+        #: Chaos stall window (sim/chaos.py `tenant_stall`): monotonic
+        #: deadline before which composed batches sleep instead of
+        #: dispatching — the wedged-shared-chip failure mode.  Only the
+        #: batch path stalls; QC aggregate verifies have no bounded
+        #: shed alternative and stalling them would wedge consensus
+        #: outright rather than exercise flow control.
+        self._stall_until = 0.0
         #: A provider with its own circuit breaker degrades on its own;
         #: what still raises out of it is a device fault (module doc).
         self._owns_fallback = getattr(provider, "breaker", None) is not None
@@ -404,6 +411,22 @@ class SharedFrontier:
     def tenants_status(self) -> dict:
         """Per-tenant snapshot for the /statusz "tenants" section."""
         return {tid: lane.status() for tid, lane in self._lanes.items()}
+
+    def inject_stall(self, duration_s: float) -> None:
+        """Arm a device-stall window (chaos `tenant_stall`): for
+        `duration_s` from now every composed batch sleeps before
+        dispatching, so queues back up and the bounded admission path
+        must shed to the host oracle — correctness survives a wedged
+        shared chip through flow control, not luck.  Overlapping
+        windows extend, never shorten."""
+        self._stall_until = max(self._stall_until,
+                                time.monotonic() + float(duration_s))
+        logger.warning("frontier: chaos stall armed for %.2fs",
+                       duration_s)
+
+    @property
+    def stall_injected(self) -> bool:
+        return time.monotonic() < self._stall_until
 
     # -- admission + enqueue -----------------------------------------------
 
@@ -688,6 +711,11 @@ class SharedFrontier:
                     counts.get(lane, 0) / len(batch))
 
     async def _run_batch(self, batch: List[tuple]) -> None:
+        stall = self._stall_until - time.monotonic()
+        if stall > 0:
+            # Chaos tenant_stall: the "device" is wedged — hold the
+            # composed batch (waiters included) until the window ends.
+            await asyncio.sleep(stall)
         sigs = [b[0] for b in batch]
         hashes = [b[1] for b in batch]
         voters = [b[2] for b in batch]

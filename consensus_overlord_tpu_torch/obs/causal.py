@@ -61,8 +61,8 @@ Exports, three ways:
     block (``summary()``).
 
 The port's own copy of consensus_overlord_tpu/obs/causal.py.  The
-service builds one per process (service/main.py); the sim's
-`--critpath-out` is not ported yet (ROADMAP item 8c).
+service builds one per process (service/main.py), sim/run.py one per
+fleet (its `--critpath-out` writes ``to_perfetto()``).
 """
 
 from __future__ import annotations

@@ -35,7 +35,6 @@ rings are bounded.
 
 The port's own copy of consensus_overlord_tpu/obs/telemetry.py; its
 compile-cache column counts the kernel build cache (compile_cache.py).
-The sim's soak flags are not ported yet (ROADMAP item 8c).
 """
 
 from __future__ import annotations

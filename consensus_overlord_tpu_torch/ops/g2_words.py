@@ -48,7 +48,7 @@ an output, below 2p, splits into 39 limbs of 10 bits (each < 1024).
 
 from __future__ import annotations
 
-from typing import Dict, List, NamedTuple, Sequence, Tuple
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 from .field import BLS12_381_P
 
@@ -419,20 +419,33 @@ def bounds(prog: Program) -> Dict[str, int]:
 #: and a carry pass a word); the exit (a shift pair and a mask a limb).
 #: ptxas turns each mad.lo.cc and mad.hi.cc into an IMAD and an IADD3
 #: that carries, so the card issues about twice the ALU ops counted
-#: here.
-STEP_OPS = {
-    "row": {"imad": 24, "alu": 3, "either": 0},
-    "redc_step": {"imad": 25, "alu": 3, "either": 0},
-    "chain": {"imad": 0, "alu": WORDS, "either": 0},
-    "small": {"imad": 2 * WORDS, "alu": 0, "either": 0},
-    "quotient": {"imad": 8 + 2 * WORDS, "alu": 6 + WORDS + 1, "either": 0},
-    "entry": {"imad": 0, "alu": 3 * LIMBS + 3 * WORDS, "either": 0},
-    "exit": {"imad": 0, "alu": 2 * LIMBS, "either": 0},
-}
+#: here.  step_ops(words, limbs) prices the same steps for a field of
+#: another size (chip_smoke.py counts the G1 and field kernels' bounds
+#: with it).
+def step_ops(words: int = WORDS, limbs: int = LIMBS
+             ) -> Dict[str, Dict[str, int]]:
+    return {
+        "row": {"imad": 2 * words, "alu": 3, "either": 0},
+        "redc_step": {"imad": 2 * words + 1, "alu": 3, "either": 0},
+        "chain": {"imad": 0, "alu": words, "either": 0},
+        "small": {"imad": 2 * words, "alu": 0, "either": 0},
+        "quotient": {"imad": 8 + 2 * words, "alu": 6 + words + 1,
+                     "either": 0},
+        "entry": {"imad": 0, "alu": 3 * limbs + 3 * words, "either": 0},
+        "exit": {"imad": 0, "alu": 2 * limbs, "either": 0},
+    }
 
 
-def _ops(*terms) -> Dict[str, int]:
-    return {k: sum(c * STEP_OPS[s][k] for c, s in terms)
+STEP_OPS = step_ops()
+
+
+def price_steps(steps: Dict[str, int],
+              priced: Optional[Dict[str, Dict[str, int]]] = None
+              ) -> Dict[str, int]:
+    """int32 instructions of `steps` ({step: count}) by pipe, priced by
+    STEP_OPS or `priced` (a step_ops table)."""
+    priced = STEP_OPS if priced is None else priced
+    return {k: sum(c * priced[s][k] for s, c in steps.items())
             for k in ("imad", "alu", "either")}
 
 
@@ -470,4 +483,4 @@ def bound_steps(prog: Program) -> Dict[str, int]:
 def bound_ops(prog: Program) -> Dict[str, int]:
     """int32 instructions a lane of the function needs at least, by pipe
     (bound_steps priced by STEP_OPS): what the kernels' bound counts."""
-    return _ops(*((c, s) for s, c in bound_steps(prog).items()))
+    return price_steps(bound_steps(prog))

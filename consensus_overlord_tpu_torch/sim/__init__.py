@@ -10,14 +10,15 @@ This is also the scaffold for the BASELINE.md measurement configs
 (4 → 10k validator fleets).
 
 The port's own copy of consensus_overlord_tpu/sim/ (the port imports
-nothing of the JAX package).  The chaos schedules (sim/chaos.py) are not
-ported yet.  sim/grpc_fakes.py holds the service's fake siblings (the
-network service and the controller), on either RPC transport.
+nothing of the JAX package).  sim/grpc_fakes.py holds the service's fake
+siblings (the network service and the controller), on either RPC
+transport.
 """
 
 from .harness import SimNetwork, SimNode  # noqa: F401
 from .router import Router  # noqa: F401
 from .controller import SafetyViolation, SimController  # noqa: F401
+from .chaos import ChaosEvent, ChaosRunner, ChaosSchedule  # noqa: F401
 from .adversary import (  # noqa: F401
     AdversaryShim,
     BEHAVIORS,

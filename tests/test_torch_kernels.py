@@ -131,33 +131,60 @@ def _check_group_terms(group, spec):
         assert {col for _, _, col in thread} <= own  # its own columns
 
 
+def _word_ops(words, limbs, mul, stage1, chain, small, load, out):
+    """The word rule of chip_smoke.word_ops, priced by hand: a row of 2w
+    multiplies and 3 carry ops for each word of each product and scale
+    correction, a REDC word step of 2w + 1 multiplies and 3 carry ops
+    for each word of each first-stage product and twice each output, a
+    w-word chain for each addition or subtraction, 2w multiplies for
+    each small multiple, each load's quotient step and repack, each
+    output's exit."""
+    imad = (2 * words * words * (mul + out)
+            + (2 * words + 1) * words * (stage1 + 2 * out)
+            + (8 + 2 * words) * load + 2 * words * small)
+    alu = (3 * words * (mul + out) + 3 * words * (stage1 + 2 * out)
+           + words * chain + (7 + words) * load
+           + (3 * limbs + 3 * words) * load + 2 * limbs * out)
+    return {"imad": imad, "alu": alu, "either": 0}
+
+
 def test_lane_ops_count_each_pipe():
-    """chip_smoke.py's operation count: the product's 39² multiply-adds
-    and every fold row's 39 on the multiply-add pipe, each carry pass's
-    mask and shift-add on the ALU pipe."""
+    """chip_smoke.py's operation count.  The limb field ops (what the
+    pairing kernels' bound counts): the product's 39² multiply-adds and
+    every fold row's 39 on the multiply-add pipe, each carry pass's mask
+    and shift-add on the ALU pipe.  The field and G1 kernels' bound: the
+    least their function needs in 12 words of 32 bits (word_ops): one
+    product (fq_mul), Algorithms 7 and 9 of Renes–Costello–Batina (12
+    and 8 products, 6 and 4 of them in the first stage, 17 and 3
+    additions or subtractions, 3 and 4 small multiples)."""
     def fold_imads(name):
         return TFQ.n * sum(a for k, a, _, _ in kernels.plan_steps(TFQ, name)
                            if k == "fold")
 
     mul_steps = kernels.plan_steps(TFQ, "mul")
     carried = sum(w for k, _, w, _ in mul_steps if k == "carry")
-    ops = chip_smoke.lane_ops(TFQ)
+    f = chip_smoke.field_ops(TFQ)
     mul = TFQ.n * TFQ.n + fold_imads("mul")
-    assert ops["fq_mul"] == {"imad": mul, "alu": ops["fq_mul"]["alu"],
-                             "either": 0}
-    assert 2 * carried - len(mul_steps) <= ops["fq_mul"]["alu"] < 2 * (
+    assert f["mul"] == {"imad": mul, "alu": f["mul"]["alu"], "either": 0}
+    assert 2 * carried - len(mul_steps) <= f["mul"]["alu"] < 2 * (
         carried + len(mul_steps))
-    assert ops["g1_dbl"]["imad"] == 8 * mul + sum(
-        fold_imads(p) for p in ("add2", "add2", "sub", "small8", "small12",
-                                "small3", "small2"))
-    assert ops["g1_dbl"]["either"] == 7 * TFQ.n  # its 7 limb-wise ops
+    assert f["small8"]["imad"] == fold_imads("small8")
+    assert f["sub"]["either"] == TFQ.n  # one limb-wise op
+    ops = chip_smoke.lane_ops(TFQ)
+    assert ops["fq_mul"] == _word_ops(12, 39, 1, 0, 0, 0, 2, 1) == {
+        "imad": 1240, "alu": 566, "either": 0}
+    assert ops["g1_add"] == _word_ops(12, 39, 12, 6, 17, 3, 6, 3) == {
+        "imad": 8184, "alu": 2442, "either": 0}
+    assert ops["g1_dbl"] == _word_ops(12, 39, 8, 4, 3, 4, 3, 3) == {
+        "imad": 6360, "alu": 1542, "either": 0}
 
 
 def test_curve_lane_ops_count_each_kernel():
-    """chip_smoke.py's operation count for the 26-limb kernels, from
-    their field ops: ed_add 9 products, 5 adds and 4 subtractions;
-    wp_add_general 14 products, 15 adds, 6 subtractions, 4 triples and 3
-    negations; secp_add/secp_dbl g1_add/g1_dbl's with 3b = 21."""
+    """chip_smoke.py's operation count for the 26-limb kernels: ed_add
+    (9 products, 5 adds and 4 subtractions) and wp_add_general (14
+    products, 15 adds, 6 subtractions, 4 triples and 3 negations) from
+    their limb field ops; each field's fq_mul and secp_add/secp_dbl from
+    the least they need in 8 words (g1_add/g1_dbl's counts, 3b = 21)."""
     def plan_imads(spec, name):
         return spec.n * sum(a for k, a, _, _ in kernels.plan_steps(spec, name)
                             if k == "fold")
@@ -168,18 +195,18 @@ def test_curve_lane_ops_count_each_kernel():
             (SM2_FQ, "fq_mul_sm2",
              {"wp_add_general": (14, {"add2": 15, "sub": 6, "small3": 4,
                                       "neg": 3})}),
-            (SECP256K1_FQ, "fq_mul_secp256k1",
-             {"secp_add": (12, {"add2": 12, "sub": 5, "small3": 1,
-                                "small21": 2}),
-              "secp_dbl": (8, {"add2": 2, "sub": 1, "small8": 1,
-                               "small21": 1, "small3": 1, "small2": 1})})):
+            (SECP256K1_FQ, "fq_mul_secp256k1", {})):
         ops = chip_smoke.curve_lane_ops(spec)
         mul = spec.n * spec.n + plan_imads(spec, "mul")
-        assert ops[fq_mul]["imad"] == mul
+        assert ops[fq_mul] == _word_ops(8, 26, 1, 0, 0, 0, 2, 1) == {
+            "imad": 576, "alu": 382, "either": 0}
         for name, (muls, small) in want.items():
             assert ops[name]["imad"] == muls * mul + sum(
                 c * plan_imads(spec, p) for p, c in small.items())
             assert ops[name]["either"] == sum(small.values()) * spec.n
+    ops = chip_smoke.curve_lane_ops(SECP256K1_FQ)
+    assert ops["secp_add"] == _word_ops(8, 26, 12, 6, 17, 3, 6, 3)
+    assert ops["secp_dbl"] == _word_ops(8, 26, 8, 4, 3, 4, 3, 3)
 
 
 @pytest.mark.parametrize("op", ["g2_add", "g2_dbl"])

@@ -203,6 +203,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                    "consensus_overlord_tpu_torch.obs.anomaly",
                    "consensus_overlord_tpu_torch.obs.causal",
                    "consensus_overlord_tpu_torch.obs.fleet",
+                   "consensus_overlord_tpu_torch.obs.ledger",
                    "consensus_overlord_tpu_torch.obs.logctx",
                    "consensus_overlord_tpu_torch.obs.metrics",
                    "consensus_overlord_tpu_torch.obs.prof",
@@ -215,6 +216,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                    "consensus_overlord_pb2",
                    "consensus_overlord_tpu_torch.service.rpc",
                    "consensus_overlord_tpu_torch.service.server",
+                   "consensus_overlord_tpu_torch.sim.chaos",
                    "consensus_overlord_tpu_torch.sim.grpc_fakes",
                    "consensus_overlord_tpu_torch.sim.harness",
                    "consensus_overlord_tpu_torch.sim.run"):
