@@ -134,6 +134,37 @@ spill in any kernel fails the run.  Then
                    the port's obs/ledger.py cannot load, a view change
                    at a height no chaos event touched, or an idle kernel
                    fails the run;
+  mesh             cell bls8192-mesh4: the same deployment over
+                   MESH_LANES (4) logical lanes of the one card
+                   (parallel/sharded.py Mesh; the machine has one card,
+                   so no figure here is a multi-GPU one).  Each sharded
+                   function against its single-card function on the same
+                   inputs at 8192 votes, 16384 cache rows and 64-bit
+                   weights (verify_round, verify_round_multi at k = 3,
+                   g2_validate, g1_validate_sum, g2_sum_rows, round_step:
+                   every output torch.equal; round_step's sums also
+                   verify_round's and g1_validate_sum's; the pairing
+                   verdict on valid, forged, infinity and padded pair
+                   sets, also the oracle's), each timed beside it, and the
+                   two collective-free twins run; then CudaBlsCrypto(mesh=...)
+                   through its entry points with the launch counts set to
+                   0 just before and read just after (every key on the
+                   card, the single-hash and 3-hash rounds, the bad-lane
+                   batches against CpuBlsCrypto, the QC aggregate and its
+                   verdicts; every call on the device, every BLS kernel
+                   launched, lanes per launch printed) and its warm round
+                   in turns with the single card's; the ladder walk at 64
+                   lanes (a lost lane, a 3-lane sub-mesh that dispatches
+                   clean, an unattributed fault to the single card, the
+                   climb back, a dcn_stall past the dispatch deadline:
+                   exact verdicts, exactly 3 device failures, no host
+                   pairing); profile_sharded_stages (the lanes' own work
+                   and the combine, each timed alone, median of 5); and
+                   sharded_verify_round over a one-rank NCCL group
+                   (init_multihost, global_mesh), equal to the
+                   single-process mesh's, then a provider over that group
+                   (no supervisor; its route agreed by an all_reduce)
+                   verifying a round on the device;
 
   pairing_ab       the warm single-hash round with device pairing off,
                    on, on, off (seconds, verifies/s), and the device
@@ -1975,6 +2006,404 @@ def chaos_fleet(kernels, seed: int, card: str) -> dict:
     return doc
 
 
+# -- the mesh (cell bls8192-mesh4) ----------------------------------------------
+
+#: Logical lanes of the mesh phase, all on MESH_DEVICE: the machine has
+#: one card.
+MESH_LANES = 4
+MESH_DEVICE = "cuda:0"
+#: Lanes of the mesh phase's ladder walk (the JAX package's walk runs 16).
+MESH_LADDER_LANES = 64
+
+
+def _timed(sync, fn):
+    t = time.perf_counter()
+    out = fn()
+    sync()
+    return out, time.perf_counter() - t
+
+
+def _pairing_cases(oracle, pairing_ops, s0, h0, pks):
+    """Pair sets of the provider's shapes, each with the oracle's verdict:
+    a signature pair and its hash pair (2 pairs), the same forged, and
+    both with an infinity pair on each side and a masked padding lane
+    (5 pairs); each padded to a multiple of the mesh's lanes."""
+    sig = oracle.g1_mul(oracle.hash_to_g1(h0), s0)
+    pk = oracle.g2_decompress(pks[0])
+    neg = (oracle.G2_GEN[0], oracle.fq2_neg(oracle.G2_GEN[1]))
+    h_pt = oracle.hash_to_g1(h0)
+    cases = {}
+    for name, s in (("valid", sig), ("invalid", oracle.g1_mul(sig, 7))):
+        for extra in ((), ((None, pk), (h_pt, None))):
+            pairs = [(s, neg), (h_pt, pk), *extra]
+            live = len(pairs) + (1 if extra else 0)  # + a masked pair
+            size = -(-live // MESH_LANES) * MESH_LANES
+            pad = [None] * (size - len(pairs))
+            px, py, pinf = pairing_ops.g1_affine_from_oracle(
+                [p for p, _ in pairs] + pad)
+            qx, qy, qinf = pairing_ops.g2_affine_from_oracle(
+                [q for _, q in pairs] + pad)
+            mask = [i < len(pairs) for i in range(size)]
+            key = f"{name}{'_inf_pad' if extra else ''}"
+            cases[key] = ((px, py, pinf, qx, qy, qinf, mask),
+                          oracle.multi_pairing_is_one(pairs))
+    return cases
+
+
+def mesh_functions(torch, prov, mesh, s0, hashes, pks, sigs, sync) -> dict:
+    """Each sharded function over the mesh against the single-card
+    function on the same inputs at the deployment's size: every strict
+    output and validity mask torch.equal, every pairing verdict also the
+    oracle's; the two collective-free twins run.  Returns the phase doc
+    and the sharded round's outputs (for the NCCL check)."""
+    import numpy as np
+    from consensus_overlord_tpu_torch.crypto import bls12381 as oracle
+    from consensus_overlord_tpu_torch.crypto import cuda_provider as card
+    from consensus_overlord_tpu_torch.ops import bls12381_groups as dev
+    from consensus_overlord_tpu_torch.ops import pairing as pairing_ops
+    from consensus_overlord_tpu_torch.parallel import sharded
+
+    n = len(pks)
+    size, *arrays, _ = prov._host_arrays(sigs[0], pks, n)
+    ins = [prov._to_dev(a) for a in arrays]
+    pk = [t.contiguous() for t in prov._pk_device()]
+    hx = [hashes[i % 3] for i in range(n)]
+    sx = [sigs[i % 3][i] for i in range(n)]
+    _, *marr, _ = prov._host_arrays(sx, pks, n)
+    gmask = np.zeros((3, size), bool)
+    for g in range(3):
+        gmask[g, g:n:3] = True
+    multi_ins = [prov._to_dev(a) for a in marr] + [prov._to_dev(gmask)]
+    parsed = dev.parse_g2_compressed(pks)
+    g2_ins = [prov._to_dev(a) for a in (parsed.x, parsed.sign,
+                                        parsed.infinity, parsed.wellformed)]
+    g1_ins = ins[:4]
+    rows = prov._to_dev(np.arange(n, dtype=np.int64))
+    mask = prov._to_dev(np.ones(n, bool))
+    bits = dev.unpack_weight_bits(ins[4][:n])
+    step_ins = [t[:n] for t in ins[:4]] + [t[:n].contiguous()
+                                           for t in pk] + [bits]
+    checks = {
+        "verify_round": (sharded.sharded_verify_round, card.verify_round,
+                         ins + pk),
+        "verify_round_multi_k3": (sharded.sharded_verify_round_multi,
+                                  card.verify_round_multi,
+                                  multi_ins + pk),
+        "g2_validate": (sharded.sharded_g2_validate, card.g2_validate,
+                        g2_ins),
+        "g1_validate_sum": (sharded.sharded_g1_validate_sum,
+                            card.g1_validate_sum, g1_ins),
+        "g2_sum_rows": (sharded.sharded_g2_sum_rows, card.g2_sum_rows,
+                        [rows, mask] + pk),
+        "round_step": (sharded.sharded_round_step, sharded.round_step,
+                       step_ins),
+    }
+    doc = {"phase": "mesh_functions", "lanes": MESH_LANES, "votes": n,
+           "seconds": {}, "one_card_seconds": {}}
+    round_out = step_out = None
+    for name, (make, one, args) in checks.items():
+        fn = make(mesh)
+        want, t_one = _timed(sync, lambda: one(*args))
+        got, t_mesh = _timed(sync, lambda: fn(*args))
+        if len(got) != len(want) or not all(
+                torch.equal(g, w) for g, w in zip(got, want)):
+            fail(f"mesh: sharded {name} differs from the single-card "
+                 "function")
+        doc["seconds"][name] = t_mesh
+        doc["one_card_seconds"][name] = t_one
+        if name == "verify_round":
+            round_out = got
+            if not bool(got[3][:n].all()):
+                fail("mesh: sharded verify_round rejected a valid vote")
+        if name == "round_step":
+            step_out = got
+    # round_step above is held against itself over one lane; hold it also
+    # against single-card functions of other code: with every vote valid
+    # and every row live, its RLC sums are verify_round's aggregates (the
+    # same weights) and its QC sum and validity g1_validate_sum's.
+    qc = card.g1_validate_sum(*g1_ins)
+    for what, got, want in (
+            ("G1 RLC sum", step_out[0:3], round_out[0:3]),
+            ("G2 RLC sum", step_out[3:6], round_out[4:7]),
+            ("QC sum", step_out[6:9], qc[0:3]),
+            ("validity", step_out[9:], [qc[3][:n]])):
+        if not all(torch.equal(g, w) for g, w in zip(got, want)):
+            fail(f"mesh: round_step's {what} differs from the single-card "
+                 "verify_round/g1_validate_sum")
+    verdicts = {}
+    pair_fn = sharded.sharded_multi_pairing_is_one(mesh)
+    for name, (host, want) in _pairing_cases(
+            oracle, pairing_ops, s0, hashes[0], pks).items():
+        args = [prov._to_dev(np.asarray(a)) for a in host]
+        one = bool(pairing_ops.multi_pairing_is_one_staged(*args))
+        got, secs = _timed(sync, lambda: bool(pair_fn(*args)))
+        if not got == one == want:
+            fail(f"mesh: pairing verdict {name}: mesh {got}, single card "
+                 f"{one}, oracle {want}")
+        verdicts[name] = got
+        doc["seconds"][f"pairing_{name}"] = secs
+    doc["pairing_verdicts"] = verdicts
+    _, doc["seconds"]["verify_round_local"] = _timed(
+        sync, lambda: sharded.sharded_verify_round_local(mesh)(*ins, *pk))
+    _, doc["seconds"]["miller_partial_local"] = _timed(
+        sync, lambda: sharded.sharded_miller_partial_local(mesh)(*(
+            prov._to_dev(np.asarray(a)) for a in _pairing_cases(
+                oracle, pairing_ops, s0, hashes[0], pks)["valid"][0])))
+    return doc, (ins + pk, round_out)
+
+
+def mesh_provider(torch, kernels, prov, mesh, s0, hashes, pks, sigs,
+                  sync) -> dict:
+    """CudaBlsCrypto over the mesh through its entry points, with the
+    launch counts set to 0 just before and read just after: every key
+    validated on the card, the single-hash and 3-hash rounds (every lane
+    True), the bad-lane batches verdict for verdict against
+    CpuBlsCrypto, the QC aggregate (byte-equal to the single-card
+    provider's, which the qc_aggregate phase holds against CpuBlsCrypto)
+    and its verdicts; no host route, no breaker failure, no host
+    pairing, and every BLS kernel launched.  Each round is timed beside
+    the single-card provider's, in turns."""
+    from consensus_overlord_tpu_torch.core.sm3 import sm3_hash
+    from consensus_overlord_tpu_torch.crypto.cuda_provider import (
+        CudaBlsCrypto)
+    from consensus_overlord_tpu_torch.crypto.provider import CpuBlsCrypto
+
+    n = len(pks)
+    h0 = hashes[0]
+    mp = CudaBlsCrypto(s0, device="cuda", mesh=mesh)
+    if mp._kernels.lanes != MESH_LANES:
+        fail(f"mesh: the provider runs {mp._kernels.lanes} lanes")
+    # The single-card reference aggregate, before the counted window: its
+    # launches are not the mesh's.
+    agg_one = prov.aggregate_signatures(sigs[0], pks)
+    kernels.reset_counts()
+    _, t_keys = _timed(sync, lambda: mp.update_pubkeys(pks))
+    if mp._pk.aff[:256] != prov._pk.aff[:256] or any(
+            mp._pk.index[pk] < 0 for pk in pks):
+        fail("mesh: device-validated pubkeys differ from the single card's")
+    hx = [hashes[i % 3] for i in range(n)]
+    sx = [sigs[i % 3][i] for i in range(n)]
+    secs = {"pubkeys": t_keys}
+    for rnd, args in (("single_hash_cold", (sigs[0], [h0] * n, pks)),
+                      ("single_hash", (sigs[0], [h0] * n, pks)),
+                      ("mixed", (sx, hx, pks))):
+        got, secs[rnd] = _timed(sync, lambda: mp.verify_batch(*args))
+        if got != [True] * n:
+            fail(f"mesh: {rnd} rejected {got.count(False)} valid votes")
+    batches = bad_lane_batches(s0, hashes, pks, sigs)
+    got, secs["bad_lanes"] = _timed(sync, lambda: [mp.verify_batch(*b)
+                                                   for b in batches])
+    if got != bad_lane_verdicts(CpuBlsCrypto(s0), batches):
+        fail("mesh: bad-lane verdicts differ from CpuBlsCrypto")
+    agg, secs["qc_aggregate"] = _timed(
+        sync, lambda: mp.aggregate_signatures(sigs[0], pks))
+    if agg != agg_one:
+        fail("mesh: the QC aggregate differs from the single card's")
+    verdicts, secs["qc_verify"] = _timed(sync, lambda: [
+        mp.verify_aggregated_signature(agg, h, pks)
+        for h in (h0, sm3_hash(b"mesh: another block"))])
+    if verdicts != [True, False]:
+        fail(f"mesh: QC verdicts {verdicts}, wanted [True, False]")
+    launches = kernels.counts()
+    lanes = {k: kernels.size_buckets(v) for k, v in kernels.sizes().items()
+             if v and k in {x.name for x in kernels.BLS_KERNELS}}
+    idle = [k.name for k in kernels.BLS_KERNELS if launches[k.name] == 0]
+    if idle:
+        fail(f"mesh: the mesh path never launched {idle}")
+    status = mp.degraded_status()
+    # The bad-lane batches' two unseen voters validate on the host (below
+    # the QC threshold), as on the single card; every batch is a device
+    # call.
+    if any(c["host"] for c in status["calls"].values()) or \
+            not status["pubkey_updates"]["device"]:
+        fail(f"mesh: a call went to the host: {status['calls']}, "
+             f"pubkey updates {status['pubkey_updates']}")
+    # The warm round in turns: single card, mesh, mesh, single card.
+    turns = []
+    for p in (prov, mp, mp, prov):
+        _, t = _timed(sync, lambda: p.verify_batch(sigs[0], [h0] * n, pks))
+        turns.append(t)
+    return {"phase": "mesh_provider", "lanes": MESH_LANES, "votes": n,
+            "seconds": secs, "warm_round_turns_s": {
+                "single_card": [turns[0], turns[3]],
+                "mesh": [turns[1], turns[2]]},
+            "verifies_per_s": n / min(turns[1], turns[2]),
+            "launches": {k.name: launches[k.name]
+                         for k in kernels.BLS_KERNELS},
+            "launch_lanes": lanes, "calls": status["calls"],
+            "pubkey_updates": status["pubkey_updates"],
+            **provider_health(mp, "mesh_provider")}, mp
+
+
+def mesh_ladder(mesh, s0, h0, pks, sigs) -> dict:
+    """The ladder walk of the JAX package's mesh resilience test at
+    MESH_LADDER_LANES lanes: a lost lane gives a 3-lane sub-mesh that
+    dispatches clean while the lane stays lost, an unattributed injected
+    fault the single card, clearing them climbs back to the full mesh,
+    and a dcn_stall past the dispatch deadline is one injected
+    DispatchTimeout; every verdict CpuBlsCrypto's, and the only host
+    re-verifies those of the three injected faults (no breaker fallback,
+    no host pairing)."""
+    from consensus_overlord_tpu_torch.crypto.cuda_provider import (
+        CudaBlsCrypto)
+    from consensus_overlord_tpu_torch.crypto.provider import CpuBlsCrypto
+    from consensus_overlord_tpu_torch.parallel.supervisor import (
+        MeshSupervisor)
+
+    n = MESH_LADDER_LANES
+    lp = CudaBlsCrypto(s0, device="cuda", mesh=mesh, device_threshold=1,
+                       dispatch_deadline_s=2.0)
+    sup = MeshSupervisor(lp, step_threshold=1, probe_successes=2,
+                         probe_cooldown_s=60.0)
+    lp.attach_supervisor(sup)
+    lp.update_pubkeys(pks[:n])
+    sb, vb = list(sigs[0][:n]), list(pks[:n])
+    sb[3], sb[4] = sb[4], sb[3]
+    hb = [h0] * n
+    want = [CpuBlsCrypto(s0).verify_signature(s, h0, v)
+            for s, v in zip(sb, vb)]
+    steps = []
+
+    def verify(label):
+        t = time.perf_counter()
+        got = lp.verify_batch(sb, hb, vb)
+        steps.append({"step": label, "rung": sup.rung,
+                      "lanes": lp._kernels.lanes,
+                      "seconds": time.perf_counter() - t,
+                      "device_failures": lp.breaker.total_failures})
+        if got != want:
+            fail(f"mesh ladder: {label}: verdicts differ from CpuBlsCrypto")
+
+    verify("full_mesh")
+    lane = lp.mesh_device_names()[2]
+    lp.inject_device_loss(lane, 3600.0)
+    verify("lane lost")
+    if (sup.rung, sup.quarantined_devices(), lp._kernels.lanes) != (
+            "sub_mesh", [lane], MESH_LANES - 1):
+        fail(f"mesh ladder: after the loss {sup.statusz()}")
+    verify("sub_mesh, lane still lost")
+    lp.breaker.inject_faults(0.001, min_faults=1)
+    verify("unattributed fault")
+    lp.breaker.clear_injected_faults()
+    if (sup.rung, lp._kernels.lanes) != ("single_chip", 1):
+        fail(f"mesh ladder: after the fault {sup.statusz()}")
+    verify("single_chip")
+    lp.inject_device_loss(lane, 0.0)
+    sup.probe_cooldown_s = 0.0
+    for i in range(8):
+        verify(f"climb {i}")
+        if sup.rung == "full_mesh":
+            break
+    if (sup.rung, lp._kernels.lanes) != ("full_mesh", MESH_LANES):
+        fail(f"mesh ladder: did not climb back: {sup.statusz()}")
+    lp.inject_dcn_stall(30.0)
+    verify("dcn_stall")
+    lp.inject_dcn_stall(0.0)
+    reason = lp.breaker.status()["last_failure_reason"]
+    if "DispatchTimeout" not in reason or sup.rung != "single_chip":
+        fail(f"mesh ladder: the stall gave {reason!r} at {sup.rung}")
+    for i in range(8):
+        verify(f"climb after the stall {i}")
+        if sup.rung == "full_mesh":
+            break
+    failures = lp.breaker.total_failures
+    if (sup.rung != "full_mesh" or failures != 3
+            or lp.breaker.total_fallbacks or lp.pairing_host_fallbacks):
+        fail(f"mesh ladder: rung {sup.rung}, {failures} device failures "
+             f"(3 injected), {lp.breaker.total_fallbacks} breaker "
+             f"fallbacks, {lp.pairing_host_fallbacks} host pairings")
+    return {"phase": "mesh_ladder", "lanes": n, "steps": steps,
+            "transitions": [(t["from"], t["to"], t["reason"])
+                            for t in sup.statusz()["recent"]],
+            "device_failures": failures}
+
+
+def mesh_nccl(torch, mesh, inputs, want, s0, h0, pks, sigs) -> dict:
+    """sharded_verify_round over a one-rank NCCL group (init_multihost
+    against a coordinator on this machine, global_mesh of MESH_LANES
+    logical lanes of cuda:0): its combine goes through
+    torch.distributed.all_gather, and every output must equal the
+    single-process mesh's.  Then CudaBlsCrypto over that group mesh: no
+    supervisor may attach, and a round, its route agreed by the group
+    (an all_reduce), runs on the device with every vote True."""
+    import socket
+
+    import torch.distributed as dist
+    from consensus_overlord_tpu_torch.crypto.cuda_provider import (
+        CudaBlsCrypto)
+    from consensus_overlord_tpu_torch.parallel import (
+        global_mesh, host_shard_array, init_multihost, sharded_verify_round)
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    t = time.perf_counter()
+    backend = "nccl" if mesh.home.type == "cuda" else "gloo"
+    if not init_multihost(f"127.0.0.1:{port}", 1, 0, backend=backend,
+                          timeout_s=120.0):
+        fail("mesh: init_multihost did not join the group")
+    try:
+        gmesh = global_mesh(MESH_LANES, device=mesh.home)
+        if gmesh.group is None or gmesh.size != MESH_LANES:
+            fail(f"mesh: global_mesh is {gmesh}")
+        args = [host_shard_array(gmesh, a) if i < 6 else a
+                for i, a in enumerate(inputs)]
+        got = sharded_verify_round(gmesh)(*args)
+        if mesh.home.type == "cuda":
+            torch.cuda.synchronize()
+        if not all(torch.equal(g, w) for g, w in zip(got, want)):
+            fail("mesh: the NCCL group's round differs from the "
+                 "single-process mesh's")
+        backend = dist.get_backend()
+        t_round = time.perf_counter() - t
+        gp = CudaBlsCrypto(s0, device="cuda", mesh=gmesh)
+        try:
+            gp.attach_supervisor(None)
+            fail("mesh: a supervisor attached to a mesh across processes")
+        except ValueError:
+            pass
+        gp.update_pubkeys(pks)
+        n = len(pks)
+        if gp.verify_batch(sigs[0], [h0] * n, pks) != [True] * n:
+            fail("mesh: the group provider rejected a valid vote")
+        calls = gp.degraded_status()["calls"]["verify_batch"]
+        if calls != {"device": 1, "host": 0}:
+            fail(f"mesh: the group provider's round ran {calls}")
+    finally:
+        dist.destroy_process_group()
+    return {"phase": "mesh_nccl", "backend": backend, "world": 1,
+            "lanes": MESH_LANES, "seconds": t_round,
+            "provider_seconds": time.perf_counter() - t - t_round,
+            **provider_health(gp, "mesh_nccl")}
+
+
+def mesh_phase(torch, kernels, prov, s0, hashes, pks, sigs, smi) -> None:
+    """Cell bls8192-mesh4: the main path over MESH_LANES logical lanes of
+    the one card (mesh_functions, mesh_provider, mesh_ladder, the staged
+    probe, mesh_nccl), one JSON line each."""
+    from consensus_overlord_tpu_torch.obs.prof import DeviceProfiler
+    from consensus_overlord_tpu_torch.parallel import sharded
+
+    sync = torch.cuda.synchronize
+    t0 = time.perf_counter()
+    mesh = sharded.Mesh([torch.device(MESH_DEVICE)] * MESH_LANES)
+    doc, (inputs, round_out) = mesh_functions(torch, prov, mesh, s0, hashes,
+                                              pks, sigs, sync)
+    emit({**doc, "card": smi})
+    doc, mp = mesh_provider(torch, kernels, prov, mesh, s0, hashes, pks,
+                            sigs, sync)
+    emit({**doc, "card": smi})
+    emit({**mesh_ladder(mesh, s0, hashes[0], pks, sigs), "card": smi})
+    prof = DeviceProfiler()
+    mp.bind_profiler(prof)
+    probe = mp.profile_sharded_stages(sigs[0], pks)
+    emit({"phase": "mesh_profile", "card": smi, **probe,
+          "sharded": prof.summary().get("sharded")})
+    emit({**mesh_nccl(torch, mesh, inputs, round_out, s0, hashes[0], pks,
+                      sigs), "card": smi,
+          "phase_seconds": time.perf_counter() - t0})
+
+
 # -- main path -------------------------------------------------------------------
 
 def provider_health(prov, phase: str) -> dict:
@@ -3091,6 +3520,7 @@ def main(argv=None) -> int:
         curve_launches.update(doc["launches"])
     emit(curves_sim(torch, kernels, args.seed))
     emit(chaos_fleet(kernels, args.seed, smi))
+    mesh_phase(torch, kernels, prov, s0, hashes, pks, sigs, smi)
 
     # Host-clock phases first: the profiled round runs last.
     emit(pairing_ab(torch, prov, s0, sigs[0], hashes[0], pks,

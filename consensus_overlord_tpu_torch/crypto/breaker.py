@@ -192,6 +192,13 @@ class CircuitBreaker:
         with self._lock:
             return self._inject_armed_locked()
 
+    @property
+    def epoch(self) -> int:
+        """The fault-window epoch a call admitted now runs under (what
+        raise_if_injected returns outside a window)."""
+        with self._lock:
+            return self._inject_epoch
+
     def raise_if_injected(self, path: str = "") -> int:
         """Device paths call this right after winning allow(): raises
         InjectedDeviceFault while a fault window is armed, flowing

@@ -1,8 +1,9 @@
 """CudaBlsCrypto: the device-batched BLS12-381 provider on an NVIDIA GPU.
 
-The counterpart of consensus_overlord_tpu/crypto/tpu_provider.py on one
-card.  ``verify_batch`` checks N (signature, hash, voter) triples with
-one random-linear-combination relation
+The counterpart of consensus_overlord_tpu/crypto/tpu_provider.py, on one
+card or over a mesh of lanes (``mesh=``, parallel/sharded.py: cards, or
+logical lanes of one card).  ``verify_batch`` checks N (signature, hash,
+voter) triples with one random-linear-combination relation
 
     e(Σ r_i·S_i, −g2) · Π_g e(H_g, Σ_{i∈g} r_i·P_i) == 1
 
@@ -27,7 +28,11 @@ verdict enqueued right behind the sum.  Both have ``*_async`` forms that
 dispatch now and return a blocking ``resolve()``.
 
 Degraded mode, as in the JAX package: every device path asks a circuit
-breaker (crypto/breaker.py) before it dispatches and reports its outcome.
+breaker (crypto/breaker.py) before it dispatches and reports its outcome,
+and so does an attached MeshSupervisor (parallel/supervisor.py), whose
+ladder swaps the kernel set (apply_mesh_rung: the full mesh, a sub-mesh
+without a lost lane, the single card) and routes work to the host on its
+last rung.
 A chaos fault raised in Python — ``breaker.inject_faults``, a kernel set
 whose step raises ``InjectedDeviceFault``, ``inject_device_loss``, or an
 ``inject_dcn_stall`` that holds a readback past the watchdog's deadline
@@ -35,10 +40,13 @@ whose step raises ``InjectedDeviceFault``, ``inject_device_loss``, or an
 (and in bound metrics), and re-verified on the host oracle with exact
 verdicts; a failed device pairing also counts in
 ``pairing_host_fallbacks``.  An open breaker routes work to the host
-until a half-open probe succeeds.  Nothing of this hides the card or a
-kernel: any other exception of a device step, launch or readback (a
-CUDA runtime error, a real watchdog timeout) propagates to the caller
-and never reaches the breaker; a provider asked for "cuda" on a machine
+until a half-open probe succeeds.  Over a mesh that spans processes the
+route is the group's: one all_reduce before each call sends every process
+to the device or every one to the host, an injected breaker fault is
+taken there, and no supervisor is attached.  Nothing of this hides the
+card or a kernel: any other exception of a device step, launch or
+readback (a CUDA runtime error, a real watchdog timeout) propagates to
+the caller and never reaches the breaker; a provider asked for "cuda" on a machine
 without a GPU raises; and on "cuda" the constructor builds and loads
 every kernel library, so a failed build raises from the constructor.
 Batches below ``device_threshold`` (QC work below
@@ -59,6 +67,7 @@ import numpy as np
 import torch
 
 from ..core.sm3 import sm3_hash
+from ..obs.fleet import current_round_id
 from ..obs.prof import NULL_CALL, annotate, device_name
 from ..ops import bls12381_groups as dev
 from ..ops import kernels
@@ -167,17 +176,27 @@ def _readback(out):
 # Device steps (tensors in, tensors out; every tensor on one device).
 # ---------------------------------------------------------------------------
 
-def _g1_half(x, sign, inf, ok, wpacked):
-    """The G1 half of a verification round: weight unpack, G1 decompress
-    + validate + per-lane subgroup check, and the G1 MSM Σ r_i·S_i.
-    Returns the weight bits, the per-lane validity and the round's first
-    outputs: (ax, ay, ainf) of the aggregate, strict affine, and the
-    validity."""
+def _g1_partial(x, sign, inf, ok, wpacked):
+    """The G1 half of a verification round up to its sum: weight unpack,
+    G1 decompress + validate + per-lane subgroup check, and the G1 MSM
+    Σ r_i·S_i as a (1,) point.  Returns (bits, valid, sum)."""
     bits = dev.unpack_weight_bits(wpacked)
     pt, valid = dev.g1_validate_batch(x, sign, inf, ok)
-    ax, ay, ainf = dev.G1.to_affine(dev.G1.msm_bits(pt, bits))
-    return bits, valid, [dev.FQ.strict(ax[0]), dev.FQ.strict(ay[0]),
-                         ainf[0], valid]
+    return bits, valid, dev.G1.msm_bits(pt, bits)
+
+
+def _g1_outs(agg) -> list:
+    """(ax, ay, ainf), strict affine, of one (1,) G1 sum."""
+    ax, ay, ainf = dev.G1.to_affine(agg)
+    return [dev.FQ.strict(ax[0]), dev.FQ.strict(ay[0]), ainf[0]]
+
+
+def _g1_half(x, sign, inf, ok, wpacked):
+    """The G1 half of a verification round (_g1_partial).  Returns the
+    weight bits, the per-lane validity and the round's first outputs:
+    (ax, ay, ainf) of the aggregate, strict affine, and the validity."""
+    bits, valid, agg = _g1_partial(x, sign, inf, ok, wpacked)
+    return bits, valid, _g1_outs(agg) + [valid]
 
 
 def _group_bits(bits, valid, gmask):
@@ -197,6 +216,23 @@ def _g2_outs(gagg, groups: int = 0) -> list:
         dev.FQ.strict(gx[0, g]), dev.FQ.strict(gy[0, g]), ginf[0, g])]
 
 
+def _g2_partial(bits, valid, rows, pkx, pky, pkz):
+    """The pubkey-cache gather and the G2 MSM Σ r_i·P_i with weights
+    masked by the validity, as a (1,) point."""
+    vbits = bits * valid[..., None].to(bits.dtype)
+    return dev.G2.msm_bits(dev.gather_rows(rows, pkx, pky, pkz), vbits)
+
+
+def _g2_partial_multi(bits, valid, rows, gmask, pkx, pky, pkz):
+    """One G2 MSM per hash group as a (1, k) point: the k MSMs run as one
+    ladder over (B, k) lanes, so each group's lanes see exactly the ops
+    of its own MSM."""
+    k = gmask.shape[0]
+    pk = dev.gather_rows(rows, pkx, pky, pkz)
+    pk = Point(*(c[:, None].expand(c.shape[0], k, *c.shape[1:]) for c in pk))
+    return dev.G2.msm_bits(pk, _group_bits(bits, valid, gmask))
+
+
 def verify_round(x, sign, inf, ok, wpacked, rows, pkx, pky, pkz):
     """One single-hash verification round on the device: the G1 half
     (_g1_half), the pubkey-cache gather, and the G2 MSM Σ r_i·P_i with
@@ -204,25 +240,19 @@ def verify_round(x, sign, inf, ok, wpacked, rows, pkx, pky, pkz):
     affine coords of both aggregates plus the per-lane validity:
     (ax, ay, ainf, valid, gx, gy, ginf)."""
     bits, valid, outs = _g1_half(x, sign, inf, ok, wpacked)
-    vbits = bits * valid[..., None].to(bits.dtype)
-    gagg = dev.G2.msm_bits(dev.gather_rows(rows, pkx, pky, pkz), vbits)
-    return tuple(outs + _g2_outs(gagg))
+    return tuple(outs + _g2_outs(_g2_partial(bits, valid, rows,
+                                             pkx, pky, pkz)))
 
 
 def verify_round_multi(x, sign, inf, ok, wpacked, rows, gmask,
                        pkx, pky, pkz):
     """k-hash verification round: one G1 MSM over all lanes plus one G2
     MSM per hash group (weights masked by validity AND the host-computed
-    group membership `gmask` (k, B)).  The k G2 MSMs run as one ladder
-    over (B, k) lanes — each group's lanes see exactly the ops of its own
-    MSM.  Returns the G1 aggregate, the validity, then (gx, gy, ginf) per
-    group."""
+    group membership `gmask` (k, B); _g2_partial_multi).  Returns the G1
+    aggregate, the validity, then (gx, gy, ginf) per group."""
     bits, valid, outs = _g1_half(x, sign, inf, ok, wpacked)
-    k = gmask.shape[0]
-    pk = dev.gather_rows(rows, pkx, pky, pkz)
-    pk = Point(*(c[:, None].expand(c.shape[0], k, *c.shape[1:]) for c in pk))
-    gagg = dev.G2.msm_bits(pk, _group_bits(bits, valid, gmask))
-    return tuple(outs + _g2_outs(gagg, k))
+    gagg = _g2_partial_multi(bits, valid, rows, gmask, pkx, pky, pkz)
+    return tuple(outs + _g2_outs(gagg, gmask.shape[0]))
 
 
 def verify_round_tab(x, sign, inf, ok, wpacked, rows, tx, ty, tz):
@@ -266,35 +296,48 @@ def g2_validate(x, sign, inf, ok):
     return pt.x, pt.y, pt.z, valid
 
 
+def _g1_sum_partial(x, sign, inf, ok):
+    """G1 decompression and the tree sum of the valid, finite lanes as a
+    (1,) point, and the per-lane validity."""
+    pt, valid = dev.g1_decompress_device(x, sign, inf, ok)
+    return dev.G1.tree_sum(
+        dev.G1.select(valid & ~inf, pt, dev.G1.infinity_like(x))), valid
+
+
 def g1_validate_sum(x, sign, inf, ok):
     """Decompress a batch of G1 signatures and tree-sum them (the QC
     signature aggregate, reference src/consensus.rs:418-444).  No
     subgroup check, matching the oracle aggregate path; invalid and
     infinity lanes become the identity before the sum.  Returns the
     strict affine sum and the per-lane validity: (ax, ay, ainf, valid)."""
-    pt, valid = dev.g1_decompress_device(x, sign, inf, ok)
-    agg = dev.G1.tree_sum(
-        dev.G1.select(valid & ~inf, pt, dev.G1.infinity_like(x)))
-    ax, ay, ainf = dev.G1.to_affine(agg)
-    return dev.FQ.strict(ax[0]), dev.FQ.strict(ay[0]), ainf[0], valid
+    agg, valid = _g1_sum_partial(x, sign, inf, ok)
+    return tuple(_g1_outs(agg) + [valid])
+
+
+def _g2_rows_partial(rows, mask, pkx, pky, pkz):
+    """The tree sum of the masked lanes' cached pubkey rows as a (1,)
+    point."""
+    pk = dev.gather_rows(rows, pkx, pky, pkz)
+    return dev.G2.tree_sum(
+        dev.G2.select(mask, pk, dev.G2.infinity_like(pk.x)))
 
 
 def g2_sum_rows(rows, mask, pkx, pky, pkz):
     """Σ P_i over cached pubkey rows (the QC pubkey aggregate, reference
     src/consensus.rs:365-383), padding lanes masked to the identity.
     Returns the strict affine sum (ax, ay, ainf)."""
-    pk = dev.gather_rows(rows, pkx, pky, pkz)
-    pk = dev.G2.select(mask, pk, dev.G2.infinity_like(pk.x))
-    ax, ay, ainf = dev.G2.to_affine(dev.G2.tree_sum(pk))
-    return dev.FQ.strict(ax[0]), dev.FQ.strict(ay[0]), ainf[0]
+    return tuple(_g2_outs(_g2_rows_partial(rows, mask, pkx, pky, pkz)))
 
 
 class _SingleChipKernels:
     """The device steps above, as the provider's default kernel set: the
     provider calls every device step through ``self._kernels``, so a
-    test can swap in a set whose steps fail, and a multi-card set can
-    plug in at the same point.  `lanes` is the number of devices a batch
-    is split over: one here."""
+    test can swap in a set whose steps fail, and the mesh set
+    (_MeshKernels) plugs in at the same point.  `lanes` is the number of
+    lanes a batch is split over: one here.  `ship` feeds an operand: a
+    host array through the provider's upload (`put`), a device tensor as
+    it is; the mesh set overrides it to feed a process its block of
+    lanes."""
 
     verify_round = staticmethod(verify_round)
     verify_round_multi = staticmethod(verify_round_multi)
@@ -305,7 +348,66 @@ class _SingleChipKernels:
     g1_validate_sum = staticmethod(g1_validate_sum)
     g2_sum_rows = staticmethod(g2_sum_rows)
     multi_pairing = staticmethod(pairing_ops.multi_pairing_is_one_staged)
+    ship = staticmethod(lambda arr, put, axis_index=0: arr if isinstance(
+        arr, torch.Tensor) else put(arr))
+    ship_replicated = staticmethod(lambda arr, put: put(arr))
     lanes = 1
+
+
+class _MeshKernels:
+    """The same kernel surface over a mesh of lanes (parallel/sharded.py):
+    signature lanes and pubkey-row indices shard across the lanes, the
+    pubkey cache is replicated (one copy per distinct device), partial
+    group sums combine once, and the pairing verdict runs as the sharded
+    staged pair (per-lane Miller partials, one Fq12 tree product of the
+    D partials, one shared final exponentiation).  The provider keeps its
+    batch and pair pads a multiple of `lanes`.  Over a mesh of several
+    processes every lane-sharded output is gathered whole
+    (sharded.gather_lanes), so the provider reads back the whole batch.
+    The G2 window tables are single-card only: no table steps here."""
+
+    def __init__(self, mesh):
+        from ..parallel import multihost, sharded
+
+        self.mesh = mesh
+        self.lanes = mesh.size
+        self._host_shard_array = multihost.host_shard_array
+        self._gather = functools.partial(sharded.gather_lanes, mesh)
+        self._verify_round = sharded.sharded_verify_round(mesh)
+        self._verify_round_multi = sharded.sharded_verify_round_multi(mesh)
+        self._g2_validate = sharded.sharded_g2_validate(mesh)
+        self._g1_validate_sum = sharded.sharded_g1_validate_sum(mesh)
+        self.g2_sum_rows = sharded.sharded_g2_sum_rows(mesh)
+        self.multi_pairing = sharded.sharded_multi_pairing_is_one(mesh)
+
+    def _whole(self, out, *at):
+        return tuple(self._gather(t) if i in at else t
+                     for i, t in enumerate(out))
+
+    def verify_round(self, *args):
+        return self._whole(self._verify_round(*args), 3)
+
+    def verify_round_multi(self, *args):
+        return self._whole(self._verify_round_multi(*args), 3)
+
+    def g2_validate(self, *args):
+        return self._whole(self._g2_validate(*args), 0, 1, 2, 3)
+
+    def g1_validate_sum(self, *args):
+        return self._whole(self._g1_validate_sum(*args), 3)
+
+    def ship(self, arr, put, axis_index: int = 0):
+        """This process's block of a lane-sharded operand (the whole
+        operand in a one-process mesh); axis_index picks the lane axis
+        (1 for the multi-hash (k, B) group mask)."""
+        return self._host_shard_array(self.mesh, arr, axis_index=axis_index,
+                                      put=put)
+
+    def ship_replicated(self, arr, put):
+        """A host-identical operand on every distinct device of the mesh
+        (the replicated pubkey cache)."""
+        return self._host_shard_array(self.mesh, arr, replicated=True,
+                                      put=put)
 
 
 def _affine_to_oracle_g1(ax, ay, ainf) -> Optional[Tuple[int, int]]:
@@ -405,7 +507,15 @@ class CudaBlsCrypto:
     ``update_pubkeys`` that changed the cache, so a round pays gathers
     and adds only (``verify_round_tab``, ``verify_round_multi_tab``).
     None reads CONSENSUS_G2_TABLE_MSM (default off; "0", "off" and
-    "false" are off)."""
+    "false" are off).  Single-card kernel sets only.
+    mesh: a parallel/sharded.py Mesh of more than one lane shards every
+    batch over its lanes (_MeshKernels: parallel/sharded.py's functions
+    on the same kernels), and `device` is then the mesh's first lane's;
+    a mesh of one lane is the single-card set on that lane's device.
+    A mesh inside one process is the top rung of a MeshSupervisor's
+    ladder (attach_supervisor): a lost lane's sub-mesh, the single card,
+    the host oracle.  A mesh across processes has no ladder, and its
+    route to the device or the host is agreed by the group."""
 
     def __init__(self, private_key: int, common_ref: bytes = b"",
                  device_threshold: int = 32, device="cuda",
@@ -413,8 +523,8 @@ class CudaBlsCrypto:
                  qc_device_threshold: Optional[int] = None,
                  breaker: Optional[CircuitBreaker] = None,
                  dispatch_deadline_s: Optional[float] = None,
-                 g2_table_msm: Optional[bool] = None):
-        self.device = torch.device(device)
+                 g2_table_msm: Optional[bool] = None, mesh=None):
+        self.device = torch.device(mesh.home if mesh is not None else device)
         if self.device.type == "cuda":
             if not torch.cuda.is_available():
                 raise RuntimeError("CudaBlsCrypto: device 'cuda' was asked "
@@ -423,7 +533,9 @@ class CudaBlsCrypto:
             if self.device.index is None:
                 self.device = torch.device("cuda",
                                            torch.cuda.current_device())
-            kernels.load_all(self.device)
+            for d in (mesh.physical_devices() if mesh is not None
+                      else [self.device]):
+                kernels.load_all(d)
         if device_pairing is None:
             mode = os.environ.get("CONSENSUS_DEVICE_PAIRING", "auto")
             if mode == "auto":
@@ -444,7 +556,23 @@ class CudaBlsCrypto:
         self._qc_threshold = (qc_device_threshold
                               if qc_device_threshold is not None
                               else device_threshold)
-        self._kernels = _SingleChipKernels
+        #: The configured full mesh (None for a single-card provider): the
+        #: ladder's top rung, and the lanes a sub-mesh drops lanes from.
+        self._mesh = mesh if mesh is not None and mesh.size > 1 else None
+        self._kernels = (_MeshKernels(self._mesh) if self._mesh is not None
+                         else _SingleChipKernels)
+        #: The full rung's kernel set, reused when the ladder climbs back.
+        self._full_kernels = self._kernels
+        #: Optional MeshSupervisor (parallel/supervisor.py): fed from
+        #: _device_failed/_device_succeeded, consulted in _device_allowed,
+        #: swaps kernel sets through apply_mesh_rung.
+        self._supervisor = None
+        #: The staged mesh probe's functions (profile_sharded_stages),
+        #: built on its first call and dropped with the kernel set.
+        self._stage_probe = None
+        #: Chaos hook: {lane name: seconds} of delay added inside each
+        #: lane's timed shard fetch (inject_straggler).
+        self._inject_straggler: dict = {}
         if dispatch_deadline_s is None:
             dispatch_deadline_s = float(os.environ.get(
                 "CONSENSUS_DISPATCH_DEADLINE_S", "0"))
@@ -486,7 +614,7 @@ class CudaBlsCrypto:
         if g2_table_msm is None:
             g2_table_msm = os.environ.get(
                 "CONSENSUS_G2_TABLE_MSM", "0") not in ("0", "off", "false")
-        self._use_g2_tables = bool(g2_table_msm)
+        self._use_g2_tables = bool(g2_table_msm) and self._mesh is None
         #: The G2 window tables over _pk_dev (g2_table_msm): dropped with
         #: it on every change of the cache, rebuilt at the end of
         #: update_pubkeys (the reconfigure point).
@@ -502,12 +630,17 @@ class CudaBlsCrypto:
 
     def bind_profiler(self, prof) -> None:
         """Attach a device profiler (obs/prof.py DeviceProfiler): every
-        device op then records a staged per-call profile."""
+        device op then records a staged per-call profile, and the device
+        set names the mesh's lanes (or this provider's device)."""
         self.prof = prof
         if prof is None:
             return
+        mesh = getattr(self._kernels, "mesh", None)
         try:
-            prof.set_devices([self.device])
+            if mesh is not None:
+                prof.set_devices(mesh.devices, names=mesh.local_names())
+            else:
+                prof.set_devices([self.device])
         except Exception:  # noqa: BLE001 — profiling never breaks crypto
             logger.warning("profiler set_devices failed", exc_info=True)
 
@@ -533,30 +666,80 @@ class CudaBlsCrypto:
             self.calls[path][where] += 1
 
     def _device_allowed(self, path: str) -> bool:
-        """Ask the breaker; count the fallback when routed to the host."""
-        if self.breaker.allow():
-            return True
-        if self.metrics is not None:
+        """Ask the supervisor's ladder gate, then the breaker; count the
+        fallback when routed to the host.  On the host_oracle rung the
+        supervisor lets one probe through per cooldown.  Over a mesh
+        that spans processes the answer is collective (_agree_device):
+        every process of the group dispatches, or every one takes the
+        host route, so none waits in a collective its peers skipped."""
+        sup = self._supervisor
+        ok = (sup is None or sup.allow_device()) and self.breaker.allow()
+        counted = False
+        if self._group_mesh() is not None:
+            ok, counted = self._agree_device(path, ok)
+        if not ok and not counted and self.metrics is not None:
             self.metrics.host_fallbacks.labels(path=path).inc()
-        return False
+        return ok
+
+    def _group_mesh(self):
+        """The configured mesh when it spans processes, else None."""
+        mesh = self._mesh
+        return mesh if mesh is not None and mesh.group is not None else None
+
+    def _agree_device(self, path: str, ok: bool) -> Tuple[bool, bool]:
+        """The group's one decision for a call over a mesh across
+        processes: this process's `ok`, less an armed injected fault,
+        which is taken here (raised, fed to the breaker and counted) and
+        not at the dispatch (_raise_if_injected), then the minimum over
+        the group (sharded.agree, one all_reduce).  Returns (the
+        decision, whether the host fallback was counted already).  A
+        half-open breaker's probe token that the group overrules expires
+        after one cooldown (CircuitBreaker.allow)."""
+        from ..parallel import sharded
+
+        counted = False
+        if ok and self.breaker.fault_injected:
+            try:
+                self.breaker.raise_if_injected(path)
+            except Exception as e:  # noqa: BLE001 — see _injected
+                self._device_failed(path, e)
+                ok, counted = False, True
+        return sharded.agree(self._mesh, ok), counted
+
+    def _raise_if_injected(self, path: str) -> int:
+        """breaker.raise_if_injected at a dispatch; over a mesh across
+        processes the injected fault was taken collectively in
+        _device_allowed, so this is the fault-window epoch alone."""
+        if self._group_mesh() is not None:
+            return self.breaker.epoch
+        return self.breaker.raise_if_injected(path)
 
     def _device_failed(self, path: str, exc: BaseException) -> None:
         """One injected device dispatch/readback failure: feed the
-        breaker, count it, log it; the caller then falls back to the host
-        oracle.  Any other exception is re-raised here (see _injected)."""
+        breaker and the supervisor's ladder, count it, log it; the caller
+        then falls back to the host oracle.  Any other exception is
+        re-raised here (see _injected)."""
         if not _injected(exc):
             raise exc
         logger.warning("device path %s failed (%s: %s); host fallback",
                        path, type(exc).__name__, exc)
         self.breaker.record_failure(f"{path}: {type(exc).__name__}")
+        sup = self._supervisor
+        if sup is not None:
+            sup.record_failure(path, exc)
         if self.metrics is not None:
             self.metrics.device_failures.labels(path=path).inc()
             self.metrics.host_fallbacks.labels(path=path).inc()
 
     def _device_succeeded(self, epoch: int) -> None:
         """A clean device call admitted under fault-window `epoch` (what
-        breaker.raise_if_injected returned at its dispatch)."""
+        breaker.raise_if_injected returned at its dispatch): the breaker
+        counts it, and the supervisor's step-up probe (traffic is the
+        probe)."""
         self.breaker.record_success(epoch)
+        sup = self._supervisor
+        if sup is not None:
+            sup.record_success()
 
     def _pairing_failed(self, exc: BaseException) -> None:
         """One injected device pairing dispatch/readback failure: feed the
@@ -580,14 +763,107 @@ class CudaBlsCrypto:
         call.observe(self._STAGE_OF.get(phase, phase), now - t0)
         return now
 
+    # -- the mesh ladder -----------------------------------------------------
+
+    def attach_supervisor(self, supervisor) -> None:
+        """Attach a MeshSupervisor (parallel/supervisor.py): from here on
+        device outcomes walk its ladder and apply_mesh_rung swaps this
+        provider's kernel set on its transitions.  Refused over a mesh
+        that spans processes: the ladder steps one process down alone,
+        and its peers would wait in collectives it no longer joins."""
+        if self._group_mesh() is not None:
+            raise ValueError("a MeshSupervisor cannot walk a mesh that "
+                             "spans processes: its rungs are one "
+                             "process's decision")
+        self._supervisor = supervisor
+
+    @property
+    def multiprocess_mesh(self) -> bool:
+        """Whether this provider's mesh spans processes (no supervisor)."""
+        return self._group_mesh() is not None
+
+    def mesh_device_names(self) -> List[str]:
+        """The configured full mesh's lane names (what a sub-mesh drops
+        quarantined lanes from); empty for a single-card provider, which
+        has no sub_mesh rung."""
+        return [] if self._mesh is None else self._mesh.names()
+
+    def _current_lane_names(self) -> List[str]:
+        """The lanes of the CURRENT kernel set (a sub-mesh has fewer): a
+        mesh's lane names, or the single card's "type:index"."""
+        mesh = getattr(self._kernels, "mesh", None)
+        if mesh is not None:
+            return mesh.names()
+        return [device_name(self.device)]
+
+    def _lane_name(self, lane) -> str:
+        """A chaos target (a lane index or a lane name) as a lane name of
+        the full mesh (or of the current kernel set)."""
+        names = self.mesh_device_names() or self._current_lane_names()
+        if isinstance(lane, int) or (isinstance(lane, str)
+                                     and lane.isdigit()):
+            return names[int(lane) % len(names)]
+        return str(lane)
+
+    def apply_mesh_rung(self, rung: str, quarantined: Sequence[str]) -> None:
+        """MeshSupervisor hook: swap the kernel set for a ladder rung.
+        full_mesh reuses the constructor's set; sub_mesh builds
+        _MeshKernels over the lanes not quarantined (batches then pad to
+        the new lane multiple through `lanes`), or the single-card set
+        when fewer than two lanes survive; single_chip is the single-card
+        set on the mesh's first device; host_oracle changes nothing here:
+        the supervisor's allow_device() gate routes work to the host."""
+        if rung == "host_oracle":
+            return
+        if rung == "full_mesh" and self._mesh is not None and not quarantined:
+            kernels = self._full_kernels
+        elif rung != "single_chip" and self._mesh is not None:
+            survivors = self._mesh.without(quarantined)
+            kernels = (_MeshKernels(survivors) if survivors.size >= 2
+                       else _SingleChipKernels)
+        else:
+            kernels = _SingleChipKernels
+        self._swap_kernels(kernels)
+        logger.warning("mesh rung %s applied: %d lane(s)%s", rung,
+                       kernels.lanes,
+                       f", quarantined={sorted(quarantined)}"
+                       if quarantined else "")
+
+    def _swap_kernels(self, kernels) -> None:
+        """Install a kernel set and drop what was placed for the old one
+        (the device pubkey copy, the G2 tables, the stage probe).  A
+        dispatch racing the swap may mix shapes and fail: that lands in
+        the failure handling and re-verifies on the host."""
+        if kernels is self._kernels:
+            return
+        with self._pk_lock:
+            self._kernels = kernels
+            self._pk_dev = None
+            self._pk_tab = None
+        self._stage_probe = None
+
+    def _pad_to(self, n: int) -> int:
+        """The pad ladder's size for n lanes, rounded up to a multiple of
+        the kernel set's lanes."""
+        size = _pad_to(n)
+        lanes = self._kernels.lanes
+        return -(-size // lanes) * lanes
+
+    def _ship(self, arr, axis_index: int = 0):
+        """A lane-sharded operand through the kernel set's feed."""
+        return self._kernels.ship(arr, self._to_dev, axis_index)
+
     # -- watchdog and chaos hooks --------------------------------------------
 
-    def inject_device_loss(self, lane: str, seconds: float) -> None:
+    def inject_device_loss(self, lane, seconds: float) -> None:
         """Chaos hook (sim `device_loss`): for `seconds`, every watched
-        device call on the lane named `lane` ("type:index", for example
-        "cuda:0") raises DeviceLossError.  seconds <= 0 clears the
-        lane."""
-        name = str(lane)
+        device call of a kernel set holding the lane `lane` (an index
+        into the full mesh's lanes, or a lane name: "cuda:0" for a single
+        card, "cuda:0/2" for a logical lane) raises DeviceLossError
+        naming it.  Once the supervisor has quarantined it, a sub-mesh
+        without it dispatches clean while the window lasts.  seconds <= 0
+        clears the lane."""
+        name = self._lane_name(lane)
         if seconds > 0:
             self._inject_loss[name] = time.monotonic() + float(seconds)
             logger.warning("device_loss armed: lane %s for %.2fs",
@@ -621,18 +897,70 @@ class CudaBlsCrypto:
         return remaining
 
     def _raise_if_lost(self, path: str) -> None:
-        """Raise DeviceLossError while an armed lane loss targets this
-        provider's device (expired windows clear themselves)."""
+        """Raise DeviceLossError while an armed lane loss targets a lane
+        of the CURRENT kernel set, matched by its exact name (expired
+        windows clear themselves)."""
         if not self._inject_loss:
             return
         now = time.monotonic()
-        lane = device_name(self.device)
+        current = None
         for name, until in list(self._inject_loss.items()):
             if now >= until:
                 self._inject_loss.pop(name, None)
-            elif name == lane:
+                continue
+            if current is None:
+                current = set(self._current_lane_names())
+            if name in current:
                 raise DeviceLossError(
                     name, f"{path}: injected loss of lane {name}")
+
+    def inject_straggler(self, lane: str, seconds: float) -> None:
+        """Chaos hook: add `seconds` of delay to lane `lane`'s timed shard
+        fetches (seconds <= 0 clears it).  The sleep sits inside the
+        lane's timing window, so the straggler detector sees what a
+        degraded device-to-host path would give."""
+        lane = str(lane)
+        if seconds > 0:
+            self._inject_straggler[lane] = float(seconds)
+        else:
+            self._inject_straggler.pop(lane, None)
+
+    def _shard_latencies(self, out, sampled: bool = False,
+                         stage: str = "readback", mesh=None) -> None:
+        """Per-lane fetch timing of a lane-sharded output after it is
+        complete: each lane's slice (or, for a list, each lane's tensor)
+        is read back alone and timed, and lands in
+        DeviceProfiler.device_stage (sharded_device_stage_seconds{device,
+        stage} and the straggler detector) under the lane's name.  The
+        hot path (a mesh kernel set's validity) is throttled by the
+        profiler's sample interval; the probe passes sampled=True."""
+        if self.prof is None:
+            return
+        if mesh is None:
+            mesh = getattr(self._kernels, "mesh", None)
+        if mesh is None:
+            return
+        if not sampled and not self.prof.want_device_sample():
+            return
+        try:
+            round_id = current_round_id()
+            if isinstance(out, torch.Tensor):
+                own = out[mesh.rank * (out.shape[0] // mesh.world):] \
+                    if mesh.world > 1 else out
+                parts = [own[sl] for _, sl in mesh.shards(
+                    out.shape[0] // mesh.world)]
+            else:
+                parts = list(out)
+            for name, part in zip(mesh.local_names(), parts):
+                delay = self._inject_straggler.get(name)
+                t0 = time.perf_counter()
+                if delay:
+                    time.sleep(delay)
+                part.cpu()
+                self.prof.device_stage(name, stage, time.perf_counter() - t0,
+                                       round_id=round_id)
+        except Exception:  # noqa: BLE001 — profiling never breaks crypto
+            logger.warning("per-lane fetch sample failed", exc_info=True)
 
     def _deadline_for(self, size: int) -> Optional[float]:
         """Watchdog deadline for one blocking device call, scaled by the
@@ -795,10 +1123,10 @@ class CudaBlsCrypto:
         call = self._prof_begin("aggregate", n)
         with _ISSUE:
             try:
-                epoch = self.breaker.raise_if_injected("aggregate")
+                epoch = self._raise_if_injected("aggregate")
                 self._count("aggregate", "device")
                 t0 = time.perf_counter()
-                size = _pad_to(n)
+                size = self._pad_to(n)
                 call.pad(n, size)
                 parsed = dev.parse_g1_compressed(list(signatures))
                 x = np.zeros((size, dev.FQ.n), np.int32)
@@ -813,7 +1141,7 @@ class CudaBlsCrypto:
                 t0 = time.perf_counter()
                 with annotate("cuda_bls.aggregate.dispatch"):
                     out = self._kernels.g1_validate_sum(
-                        *(self._to_dev(a) for a in (x, sign_f, inf, ok)))
+                        *(self._ship(a) for a in (x, sign_f, inf, ok)))
                 call.observe("dispatch", time.perf_counter() - t0)
             except Exception as e:  # noqa: BLE001 — see _injected
                 call.finish(ok=False)
@@ -857,7 +1185,7 @@ class CudaBlsCrypto:
         call = self._prof_begin("verify_aggregated", len(voters))
         with _ISSUE:
             try:
-                epoch = self.breaker.raise_if_injected("verify_aggregated")
+                epoch = self._raise_if_injected("verify_aggregated")
                 t0 = time.perf_counter()
                 idx = self._pk_rows_of(voters)
                 if (idx < 0).any():
@@ -867,7 +1195,7 @@ class CudaBlsCrypto:
                     call.finish(ok=False)
                     return lambda: False
                 n = len(voters)
-                size = _pad_to(n)
+                size = self._pad_to(n)
                 call.pad(n, size)
                 rows = np.zeros(size, np.int64)
                 rows[:n] = idx
@@ -879,7 +1207,7 @@ class CudaBlsCrypto:
                 pkx, pky, pkz = self._pk_device()
                 with annotate("cuda_bls.verify_aggregated.dispatch"):
                     out = self._kernels.g2_sum_rows(
-                        self._to_dev(rows), self._to_dev(mask), pkx, pky, pkz)
+                        self._ship(rows), self._ship(mask), pkx, pky, pkz)
                 call.observe("dispatch", time.perf_counter() - t0)
             except Exception as e:  # noqa: BLE001 — see _injected
                 call.finish(ok=False)
@@ -1031,7 +1359,7 @@ class CudaBlsCrypto:
         # sub-batch profiles itself).
         call = self._prof_begin("verify_batch", n)
         try:
-            epoch = self.breaker.raise_if_injected("verify_batch")
+            epoch = self._raise_if_injected("verify_batch")
             if len(groups) == 1:
                 return self._dispatch_single_hash(
                     signatures, bytes(hashes[0]), voters, n, call, epoch)
@@ -1058,13 +1386,20 @@ class CudaBlsCrypto:
         return resolve_split
 
     def _host_prep(self, signatures, voters, n, call=NULL_CALL):
-        """Host-side prep shared by every batch path: parse + pad the
-        signatures, resolve (validating on first sight) pubkey rows, draw
-        packed 64-bit weights.  Returns (size, x, sign, inf, ok, wpacked,
-        rows, pk_ok) with the first seven as device tensors."""
+        """Host-side prep shared by every batch path (_host_arrays), the
+        operands shipped to the kernel set.  Returns (size, x, sign,
+        inf, ok, wpacked, rows, pk_ok) with the first seven as device
+        tensors."""
+        size, *arrays, pk_ok = self._host_arrays(signatures, voters, n, call)
+        return (size,) + tuple(self._ship(a) for a in arrays) + (pk_ok,)
+
+    def _host_arrays(self, signatures, voters, n, call=NULL_CALL):
+        """Parse + pad the signatures, resolve (validating on first sight)
+        pubkey rows, draw packed 64-bit weights.  Returns (size, x, sign,
+        inf, ok, wpacked, rows, pk_ok) as host arrays."""
         pk_idx = self._pk_rows_of(voters)
         pk_ok = pk_idx >= 0
-        size = _pad_to(n)
+        size = self._pad_to(n)
         call.pad(n, size)
         if self.metrics is not None:
             self.metrics.frontier_occupancy.observe(n / size)
@@ -1088,23 +1423,24 @@ class CudaBlsCrypto:
         wpacked[:n, 0] |= 0x80
         rows = np.zeros(size, np.int64)
         rows[:n] = np.maximum(pk_idx, 0)  # bad-key lanes: sok=False
-        ins = tuple(self._to_dev(a) for a in
-                    (sx, ssign, sinf, sok, wpacked, rows))
-        return (size,) + ins + (pk_ok,)
+        return size, sx, ssign, sinf, sok, wpacked, rows, pk_ok
 
     @_issuing
     def _dispatch_pairing(self, g1s, g2s) -> Optional[torch.Tensor]:
         """Enqueue the device multi-pairing verdict over a flush's pairs.
         g1s: [(x, y, inf)] G1 strict limbs ((n,) each, a device tensor or
         a host array) and infinity flag; g2s: the matching Fq2 pairs
-        ((2, n) limbs).  Pads to the _PAIR_SIZES ladder with infinity,
-        masked pairs, and returns the verdict as a device bool — or None
-        after feeding the breaker if an injected fault failed the
-        dispatch, so callers pair on the host."""
+        ((2, n) limbs).  Pads to the _PAIR_SIZES ladder, rounded up to a
+        multiple of the kernel set's lanes, with infinity, masked pairs
+        (each contributes one), and returns the verdict as a device bool
+        — or None after feeding the breaker if an injected fault failed
+        the dispatch, so callers pair on the host."""
         try:
-            self.breaker.raise_if_injected("pairing")
+            self._raise_if_injected("pairing")
             k = len(g1s)
             size = next((s for s in _PAIR_SIZES if k <= s), k)
+            lanes = self._kernels.lanes
+            size = -(-size // lanes) * lanes
             n = dev.FQ.n
             host = {"px": np.zeros((size, n), np.int32),
                     "py": np.zeros((size, n), np.int32),
@@ -1123,11 +1459,11 @@ class CudaBlsCrypto:
             t = {key: self._to_dev(a) for key, a in host.items()}
             for key, i, v in on_dev:
                 t[key][i] = v
-            mask = self._to_dev(np.arange(size) < k)
+            t["mask"] = self._to_dev(np.arange(size) < k)
             with annotate("cuda_bls.pairing.dispatch"):
-                return self._kernels.multi_pairing(
-                    t["px"], t["py"], t["pinf"], t["qx"], t["qy"],
-                    t["qinf"], mask)
+                return self._kernels.multi_pairing(*(
+                    self._ship(t[key]) for key in
+                    ("px", "py", "pinf", "qx", "qy", "qinf", "mask")))
         except Exception as e:  # noqa: BLE001 — see _injected
             self._pairing_failed(e)
             return None
@@ -1189,11 +1525,11 @@ class CudaBlsCrypto:
         with annotate("cuda_bls.verify_round_multi.dispatch"):
             if self._use_g2_tables:
                 out = self._kernels.verify_round_multi_tab(
-                    sx, ssign, sinf, sok, wpacked, rows, self._to_dev(gmask),
+                    sx, ssign, sinf, sok, wpacked, rows, self._ship(gmask, 1),
                     *self._pk_tables())
             else:
                 out = self._kernels.verify_round_multi(
-                    sx, ssign, sinf, sok, wpacked, rows, self._to_dev(gmask),
+                    sx, ssign, sinf, sok, wpacked, rows, self._ship(gmask, 1),
                     *self._pk_device())
         self._observe_phase("dispatch", t0, call)
         lane_hashes = [b""] * n
@@ -1252,7 +1588,11 @@ class CudaBlsCrypto:
                 self._device_failed("verify_batch", e)
                 return self._host_verify(signatures, lane_hashes, voters)
             self._device_succeeded(epoch)
-            t0 = self._observe_phase("readback", t0, call)
+            self._observe_phase("readback", t0, call)
+            # Per-lane fetch sample after the readback stage is observed,
+            # throttled, so its reads land in no stage.
+            self._shard_latencies(out[3])
+            t0 = time.perf_counter()
             try:
                 v = valid[:n] & pk_ok
                 if not v.any():
@@ -1298,6 +1638,118 @@ class CudaBlsCrypto:
                 call.finish()
 
         return resolve
+
+    #: Timed calls of each probe stage; the stage's time is their median.
+    PROBE_REPS = 5
+
+    @_issuing
+    def profile_sharded_stages(self, signatures, voters) -> dict:
+        """The staged mesh probe: split a verify round into the lanes' own
+        work and the combine, which one round cannot show.  Each half is
+        timed alone: sharded_verify_round_local (validate and partial
+        MSMs per lane), then verify_round_combine over its partials
+        (stacking the D partials, the tree sums and the affine finish),
+        beside the full round.  The pairing gets the same split on a
+        generator-pair fixture (one pair a lane, every lane live; the
+        verdict is not used): sharded_miller_partial_local, then
+        miller_combine over its partials, the shared final
+        exponentiation left out.  Every stage runs once untimed (the
+        first call builds per-shape state), then PROBE_REPS times, each
+        call timed on the host clock after synchronizing every device of
+        the mesh; a stage reports the median, and its min and max as
+        `<stage>_spread_s`.  Each lane's part of the twins is then
+        fetched and timed per lane (_shard_latencies), and a bound
+        profiler gets the four medians (DeviceProfiler.sharded).  It
+        costs real launches, so it runs where sampling is explicit,
+        never per batch.  A single-card provider probes a mesh of its
+        one device."""
+        from ..parallel import multihost, sharded
+
+        n = len(signatures)
+        if self._stage_probe is None:
+            mesh = getattr(self._kernels, "mesh", None) or sharded.Mesh(
+                [self.device])
+            self._stage_probe = (
+                sharded.sharded_verify_round_local(mesh),
+                functools.partial(sharded.verify_round_combine, mesh),
+                sharded.sharded_verify_round(mesh),
+                sharded.sharded_miller_partial_local(mesh),
+                functools.partial(sharded.miller_combine, mesh), mesh)
+        (local_fn, combine_fn, full_fn, pair_local_fn, pair_combine_fn,
+         mesh) = self._stage_probe
+        lanes = mesh.size
+        # The probe's batch is not frontier traffic: keep it out of the
+        # occupancy and padded-lane metrics.
+        metrics, self.metrics = self.metrics, None
+        try:
+            size, *arrays, _ = self._host_arrays(signatures, voters, n)
+        finally:
+            self.metrics = metrics
+        pad = -(-size // lanes) * lanes - size
+        arrays = [np.concatenate([a, np.zeros((pad,) + a.shape[1:], a.dtype)])
+                  for a in arrays]
+        size += pad
+
+        def ship(a):
+            return multihost.host_shard_array(mesh, a, put=self._to_dev)
+
+        spread = {}
+
+        def timed(fn, args, label, stage):
+            out = fn(*args)  # builds per-shape state: not a stage
+            self._synchronize(mesh)
+            times = []
+            for _ in range(self.PROBE_REPS):
+                t0 = time.perf_counter()
+                with annotate(label):
+                    out = fn(*args)
+                    self._synchronize(mesh)
+                times.append(time.perf_counter() - t0)
+            spread[f"{stage}_spread_s"] = [min(times), max(times)]
+            return out, float(np.median(times))
+
+        args = [ship(a) for a in arrays] + list(self._pk_device())
+        local_out, t_local = timed(local_fn, args,
+                                   "cuda_bls.probe.partial_reduce",
+                                   "partial_reduce")
+        _, t_combine = timed(combine_fn, [local_out],
+                             "cuda_bls.probe.combine", "allgather")
+        _, t_full = timed(full_fn, args, "cuda_bls.probe.full_round", "full")
+        g1 = (np.tile(dev.FQ.from_int(oracle.G1_GEN[0]), (lanes, 1)),
+              np.tile(dev.FQ.from_int(oracle.G1_GEN[1]), (lanes, 1)))
+        g2 = (np.tile(_NEG_G2_GEN_X, (lanes, 1, 1)),
+              np.tile(_NEG_G2_GEN_Y, (lanes, 1, 1)))
+        no, yes = np.zeros(lanes, bool), np.ones(lanes, bool)
+        pair_args = [ship(a) for a in (*g1, no, *g2, no, yes)]
+        pair_local_out, t_pair_local = timed(
+            pair_local_fn, pair_args, "cuda_bls.probe.pairing_partial",
+            "pairing_partial")
+        _, t_pair_combine = timed(pair_combine_fn, [pair_local_out],
+                                  "cuda_bls.probe.pairing_combine",
+                                  "pairing_combine")
+        device_stage_s = None
+        if self.prof is not None:
+            self.prof.sharded("partial_reduce", t_local)
+            self.prof.sharded("allgather", t_combine)
+            self.prof.sharded("pairing_partial", t_pair_local)
+            self.prof.sharded("pairing_combine", t_pair_combine)
+            self._shard_latencies([p[1] for p in local_out], sampled=True,
+                                  stage="partial_reduce", mesh=mesh)
+            self._shard_latencies(pair_local_out, sampled=True,
+                                  stage="pairing_partial", mesh=mesh)
+            device_stage_s = self.prof.device_stage_totals()
+        return {"devices": int(lanes), "batch": n, "padded": int(size),
+                "reps": self.PROBE_REPS,
+                "partial_reduce_s": t_local, "allgather_s": t_combine,
+                "pairing_partial_s": t_pair_local,
+                "pairing_combine_s": t_pair_combine, "full_s": t_full,
+                **spread, "device_stage_s": device_stage_s}
+
+    @staticmethod
+    def _synchronize(mesh) -> None:
+        for d in mesh.physical_devices():
+            if d.type == "cuda":
+                torch.cuda.synchronize(d)
 
     def _verify_one_cached(self, sig: bytes, hash32: bytes,
                            voter: bytes) -> bool:
@@ -1360,9 +1812,9 @@ class CudaBlsCrypto:
                 return
             n = len(fresh)
             try:
-                epoch = self.breaker.raise_if_injected("update_pubkeys")
+                epoch = self._raise_if_injected("update_pubkeys")
                 self._count_pubkeys("device")
-                size = _pad_to(n)
+                size = self._pad_to(n)
                 parsed = dev.parse_g2_compressed(fresh)
                 x = np.zeros((size, 2, dev.FQ.n), np.int32)
                 x[:n] = parsed.x
@@ -1373,7 +1825,7 @@ class CudaBlsCrypto:
                 ok = np.zeros(size, bool)
                 ok[:n] = parsed.wellformed
                 px, py, pz, valid = self._kernels.g2_validate(
-                    *(self._to_dev(a) for a in (x, sgn, inf, ok)))
+                    *(self._ship(a) for a in (x, sgn, inf, ok)))
                 px, py, pz = px[:n], py[:n], pz[:n]
                 px, py, pz, valid, ax, ay, ainf = self._watched(
                     _readback, (px, py, pz, valid[:n],
@@ -1425,13 +1877,16 @@ class CudaBlsCrypto:
             self._pk_dev = self._pk_tab = None
 
     def _pk_device(self) -> Tuple[torch.Tensor, ...]:
-        """The device copy of the cache, padded to the capacity ladder."""
+        """The device copy of the cache, padded to the capacity ladder
+        (on a mesh, one copy per distinct device of its lanes)."""
         with self._pk_lock:
             if self._pk_dev is None:
                 cap = _pk_capacity(max(self._pk.px.shape[0], 1))
                 pad = [(0, cap - self._pk.px.shape[0]), (0, 0), (0, 0)]
-                self._pk_dev = tuple(self._to_dev(np.pad(a, pad)) for a in
-                                     (self._pk.px, self._pk.py, self._pk.pz))
+                self._pk_dev = tuple(
+                    self._kernels.ship_replicated(np.pad(a, pad),
+                                                  self._to_dev)
+                    for a in (self._pk.px, self._pk.py, self._pk.pz))
             return self._pk_dev
 
     def _pk_tables(self) -> Tuple[torch.Tensor, ...]:

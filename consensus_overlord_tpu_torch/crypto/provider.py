@@ -10,8 +10,9 @@ min-sig provider whose per-signature verify is the exact fallback of the
 device paths.  The simulation-grade providers the sim fleet runs on
 (`SimHashCrypto`, `Ed25519Crypto` where the `cryptography` package is
 importable, `sim_crypto`) and `SimDeviceCrypto`, the simulated device
-path with a circuit breaker that the sim wraps around breaker-less
-providers, are copied too.
+path with a circuit breaker, a MeshSupervisor's ladder and the mesh
+chaos hooks that the sim wraps around breaker-less providers, are copied
+too.
 """
 
 from __future__ import annotations
@@ -281,7 +282,7 @@ class SimDeviceCrypto:
     Signing and hashing stay direct (keys are host-side on the real
     provider too, SURVEY.md §7 hard part (e))."""
 
-    def __init__(self, base, breaker=None, metrics=None):
+    def __init__(self, base, breaker=None, metrics=None, lanes: int = 8):
         from .breaker import CircuitBreaker
 
         self._base = base
@@ -296,6 +297,55 @@ class SimDeviceCrypto:
         #: dispatch stage carries it and occupancy is always 1.0) — CPU
         #: fleets exercise the full profile surface with zero hardware.
         self.prof = None
+        #: The pretend mesh's lanes ("sim:N"): what the MeshSupervisor's
+        #: sub_mesh rung quarantines against when chaos names a lane.
+        self._lanes = max(int(lanes), 1)
+        #: Optional MeshSupervisor (parallel/supervisor.py): with no
+        #: kernel sets to swap (no apply_mesh_rung), its ladder walks as
+        #: bookkeeping, so chaos runs exercise the transitions, metrics
+        #: and statusz surface with zero hardware.
+        self._supervisor = None
+        #: Chaos windows, as CudaBlsCrypto's hooks: lane loss
+        #: {name: monotonic until} and the dcn_stall window.
+        self._lost_lanes: dict = {}
+        self._dcn_stall_until = 0.0
+
+    def attach_supervisor(self, supervisor) -> None:
+        """Attach a MeshSupervisor: device outcomes walk its ladder and its
+        allow_device() gate joins the breaker's."""
+        self._supervisor = supervisor
+
+    def mesh_device_names(self) -> List[str]:
+        """The pretend lanes, for the supervisor's quarantine and sub-mesh
+        bookkeeping (one host is under them)."""
+        return [f"sim:{i}" for i in range(self._lanes)]
+
+    def _lane_name(self, device) -> str:
+        if isinstance(device, int) or (isinstance(device, str)
+                                       and device.isdigit()):
+            return f"sim:{int(device) % self._lanes}"
+        return str(device)
+
+    def inject_device_loss(self, device, seconds: float) -> None:
+        """Chaos hook (sim `device_loss`): for `seconds`, dispatches raise
+        DeviceLossError naming the lane — until the supervisor quarantines
+        it, after which dispatch runs clean (the sub-mesh rebuild,
+        modeled).  seconds <= 0 clears the lane."""
+        name = self._lane_name(device)
+        if seconds > 0:
+            self._lost_lanes[name] = time.monotonic() + float(seconds)
+        else:
+            self._lost_lanes.pop(name, None)
+
+    def inject_dcn_stall(self, seconds: float) -> None:
+        """Chaos hook (sim `dcn_stall`): for `seconds`, dispatches stall
+        briefly and raise DispatchTimeout — the watchdog's verdict on a
+        wedged call, modeled without holding the sim for the whole
+        window.  seconds <= 0 clears the window."""
+        if seconds > 0:
+            self._dcn_stall_until = time.monotonic() + float(seconds)
+        else:
+            self._dcn_stall_until = 0.0
 
     def bind_metrics(self, metrics) -> None:
         self.metrics = metrics
@@ -331,6 +381,11 @@ class SimDeviceCrypto:
         which here is the same function, so results are always exact.
         A bound profiler sees the same staged-profile surface as the
         real device path (dispatch = the simulated device call)."""
+        sup = self._supervisor
+        if sup is not None and not sup.allow_device():
+            if self.metrics is not None:
+                self.metrics.host_fallbacks.labels(path=path).inc()
+            return fn(*args)
         if not self.breaker.allow():
             if self.metrics is not None:
                 self.metrics.host_fallbacks.labels(path=path).inc()
@@ -339,6 +394,8 @@ class SimDeviceCrypto:
             epoch = self._raise_chaos_fault(path)
         except Exception as e:  # noqa: BLE001 — injected device fault
             self.breaker.record_failure(f"{path}: {type(e).__name__}")
+            if sup is not None:
+                sup.record_failure(path, e)
             if self.metrics is not None:
                 self.metrics.device_failures.labels(path=path).inc()
                 self.metrics.host_fallbacks.labels(path=path).inc()
@@ -371,18 +428,46 @@ class SimDeviceCrypto:
         """Raise the armed chaos fault, if any: the breaker's injected
         fault window (chaos `device_fault`, crypto/breaker.py
         inject_faults), which stays armed past its wall-clock window
-        until its `min_faults` have landed.  Returns the window epoch the
-        call was admitted under.  The JAX package's twin also raises the
-        mesh windows (`device_loss`, `dcn_stall`) here; they need the
-        MeshSupervisor (ROADMAP item 14)."""
-        return self.breaker.raise_if_injected(path)
+        until its `min_faults` have landed, then the mesh windows
+        (`dcn_stall`, and `device_loss` of a lane the supervisor has not
+        quarantined: a quarantined lane no longer faults — the survivor
+        sub-mesh, modeled).  Expired mesh windows clear themselves.
+        Returns the breaker window epoch the call was admitted under."""
+        from .breaker import DeviceLossError, DispatchTimeout
+
+        epoch = self.breaker.raise_if_injected(path)
+        now = time.monotonic()
+        if self._dcn_stall_until > 0.0:
+            if now < self._dcn_stall_until:
+                # The watchdog cuts a wedged call at its deadline; a token
+                # stall models it, so chaos runs pay latency, not the
+                # whole window.
+                time.sleep(0.005)
+                raise DispatchTimeout(
+                    f"{path}: simulated dispatch deadline overrun")
+            self._dcn_stall_until = 0.0
+        if not self._lost_lanes:
+            return epoch
+        sup = self._supervisor
+        quarantined = set(sup.quarantined_devices()) if sup is not None \
+            else set()
+        for name, until in list(self._lost_lanes.items()):
+            if now >= until:
+                self._lost_lanes.pop(name, None)
+                continue
+            if name not in quarantined:
+                raise DeviceLossError(
+                    name, f"{path}: injected loss of lane {name}")
+        return epoch
 
     def _record_device_success(self, epoch: int) -> None:
         """A clean device call admitted under window `epoch`: the breaker
         counts it (a half-open probe closes it) unless a fault window
-        was armed since.  The MeshSupervisor's ladder, which the JAX
-        package's twin also feeds here, comes with ROADMAP item 14."""
+        was armed since, and the supervisor's ladder counts it toward
+        its step-up probe."""
         self.breaker.record_success(epoch)
+        if self._supervisor is not None:
+            self._supervisor.record_success()
 
     def verify_signature(self, signature: bytes, hash32: bytes,
                          voter: bytes) -> bool:

@@ -18,7 +18,15 @@ the port's own copy:
                      (`sharded_device_stage_seconds{device,stage}`) and
                      feeds an attached StragglerDetector
                      (`attach_straggler`, obs/fleet.py); with one device
-                     set, every readback stage is that device's.
+                     set, every readback stage is that device's.  A mesh
+                     provider samples each lane's fetch at most once per
+                     `DEVICE_SAMPLE_INTERVAL_S` (`want_device_sample`),
+                     `device_latency` keeps each lane's last fetch
+                     (`device_last_dispatch_seconds{device}`), and
+                     `sharded` records the staged mesh probe's split
+                     (`sharded_partial_reduce_seconds` /
+                     `sharded_allgather_seconds` and the pairing's
+                     partial / combine pair).
 
   annotate(name)   — a `torch.profiler.record_function` range, the
                      counterpart of the reference's
@@ -171,8 +179,17 @@ class DeviceProfiler:
     One per node (like Metrics); `capacity` bounds the per-call ring so
     observability can't grow memory under sustained load."""
 
+    #: Floor between per-lane fetch samples on the hot path: each sample
+    #: is one blocking read per lane, so it must never ride every
+    #: resolve.
+    DEVICE_SAMPLE_INTERVAL_S = 30.0
+
     def __init__(self, metrics=None, capacity: int = 256):
         self.metrics = metrics
+        self._last_device_sample = 0.0
+        self._device_latency: Dict[str, float] = {}
+        #: The last mesh-probe split {phase: seconds} (/statusz "profile").
+        self._sharded: Dict[str, float] = {}
         self._ring: deque = deque(maxlen=max(int(capacity), 1))
         self._seq = 0
         self._lock = threading.Lock()  # seq + cumulative stage totals
@@ -231,6 +248,9 @@ class DeviceProfiler:
         if self.metrics is not None:
             self.metrics.sharded_device_stage_seconds.labels(
                 device=device, stage=stage).observe(seconds)
+        if stage == "readback":
+            # The readback is the fetch the last-dispatch gauge reports.
+            self.device_latency(device, seconds)
         if self.straggler is not None:
             self.straggler.observe(device, stage, seconds,
                                    round_id=round_id)
@@ -264,14 +284,17 @@ class DeviceProfiler:
 
     # -- device set -------------------------------------------------------
 
-    def set_devices(self, devices: Sequence) -> None:
+    def set_devices(self, devices: Sequence,
+                    names: Optional[Sequence[str]] = None) -> None:
         """Record the device set a provider dispatches to: `mesh_devices`
         (count) + `device_kind{kind}` (1 per distinct kind present — a
         heterogeneous set is itself a finding).  Takes torch devices:
-        each is named "type:index" and its kind is the card's name."""
+        each is named "type:index" (or by `names`, a mesh's lane names,
+        one a device) and its kind is the card's name."""
         try:
-            names = [device_name(d) for d in devices]
             kinds = sorted({device_kind(d) for d in devices})
+            names = (list(names) if names is not None
+                     else [device_name(d) for d in devices])
         except Exception:  # noqa: BLE001 — exotic device objects
             names, kinds = [str(d) for d in devices], ["unknown"]
         self._devices = names
@@ -279,6 +302,42 @@ class DeviceProfiler:
             self.metrics.mesh_devices.set(len(names))
             for kind in kinds:
                 self.metrics.device_kind.labels(kind=kind).set(1)
+
+    def want_device_sample(self) -> bool:
+        """Whether a caller should pay for a per-lane fetch sample now:
+        True at most once per DEVICE_SAMPLE_INTERVAL_S (the first ask
+        samples); the probe paths bypass this."""
+        with self._lock:
+            now = time.monotonic()
+            if now - self._last_device_sample < self.DEVICE_SAMPLE_INTERVAL_S:
+                return False
+            self._last_device_sample = now
+            return True
+
+    def device_latency(self, device: str, seconds: float) -> None:
+        """A lane's last fetch time, measured after its result completed:
+        a straggling or degraded lane is the outlier gauge."""
+        self._device_latency[str(device)] = seconds
+        if self.metrics is not None:
+            self.metrics.device_last_dispatch_seconds.labels(
+                device=str(device)).set(seconds)
+
+    def sharded(self, phase: str, seconds: float) -> None:
+        """One mesh-probe observation: 'partial_reduce' (the lanes' own
+        validate + MSM work), 'allgather' (stacking the D partials and
+        the combine), 'pairing_partial' (the lanes' Miller loops and
+        local Fq12 trees) or 'pairing_combine' (the Fq12 tree over the D
+        partials)."""
+        self._sharded[phase] = seconds
+        if self.metrics is None:
+            return
+        family = {"partial_reduce": "sharded_partial_reduce_seconds",
+                  "allgather": "sharded_allgather_seconds",
+                  "pairing_partial": "sharded_pairing_partial_seconds",
+                  "pairing_combine": "sharded_pairing_combine_seconds"}.get(
+                      phase)
+        if family is not None:
+            getattr(self.metrics, family).observe(seconds)
 
     # -- read side ---------------------------------------------------------
 
@@ -315,11 +374,16 @@ class DeviceProfiler:
             "crypto_device_stage_seconds": self.stage_totals(),
             "occupancy": self._last_occupancy,
             "devices": self._devices,
+            "device_last_dispatch_s": {k: round(v, 6) for k, v
+                                       in self._device_latency.items()},
             "calls": len(self._ring),
         }
         device_stages = self.device_stage_totals()
         if device_stages:
             doc["device_stages"] = device_stages
+        if self._sharded:
+            doc["sharded"] = {k: round(v, 6)
+                              for k, v in self._sharded.items()}
         return doc
 
     def statusz(self, tail: int = 32) -> dict:

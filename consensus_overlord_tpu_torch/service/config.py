@@ -7,8 +7,8 @@ reference deployment's config file drops in unchanged.  Extra
 
 The port's own copy of consensus_overlord_tpu/service/config.py.  Its
 crypto backends are "cuda" (CudaBlsCrypto on the card, the default) and
-"cpu" (the host oracle CpuBlsCrypto); the multi-device mesh (ROADMAP
-item 14) is not ported, and asking for it raises at load.
+"cpu" (the host oracle CpuBlsCrypto); `mesh` shards the "cuda"
+backend's batches over a mesh of cards (parallel/).
 """
 
 from __future__ import annotations
@@ -79,10 +79,14 @@ class ConsensusConfig:
     #: "on"/"off" force it.  The host oracle stays the breaker-guarded
     #: fallback either way.
     device_pairing: str = "auto"
-    #: Crypto dispatch mesh: "off" keeps the single-card kernel set.
-    #: The reference's "local" and "global" meshes shard lanes over
-    #: several devices; the port has no mesh yet (ROADMAP item 14), so
-    #: any other value raises.
+    #: Crypto dispatch mesh (parallel/): "off" keeps the single-card
+    #: kernel set; "local" shards signature and pairing lanes over every
+    #: card this process sees (parallel.make_mesh); "global" first joins
+    #: the process group (parallel.init_multihost, the
+    #: CONSENSUS_COORDINATOR_ADDRESS / CONSENSUS_NUM_PROCESSES /
+    #: CONSENSUS_PROCESS_ID triple) and builds the rank-major mesh over
+    #: every process's cards (parallel.global_mesh), so one frontier
+    #: flush is one mesh dispatch with one cross-process stage.
     mesh: str = "off"
     #: Serve the verify relation's G2 MSM from per-pubkey precomputed
     #: window tables rebuilt on reconfigure (ops/curve.py
@@ -210,10 +214,11 @@ class ConsensusConfig:
                 f"crypto_backend must be cuda|cpu, got "
                 f"{self.crypto_backend!r} (this is the PyTorch/CUDA "
                 "port: \"cuda\" runs the TPU backend's work on the card)")
-        if self.mesh != "off":
+        if self.mesh not in ("off", "local", "global"):
             raise ValueError(
-                f"mesh must be off, got {self.mesh!r}: the multi-GPU "
-                "mesh is not ported (ROADMAP item 14)")
+                f"mesh must be off|local|global, got {self.mesh!r} (a "
+                "typo here would silently keep the single-card kernel "
+                "set)")
         if self.supervisor_step_threshold < 1:
             raise ValueError(
                 f"supervisor_step_threshold must be >= 1, got "

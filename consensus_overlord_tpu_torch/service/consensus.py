@@ -17,10 +17,10 @@ signature checks into device-sized batches — the device-shaped replacement for
 the reference's one-at-a-time native verifies (src/consensus.rs:397-416).
 
 The port's own copy of consensus_overlord_tpu/service/consensus.py.  The
-"cuda" backend is CudaBlsCrypto on the card; the reference's multi-device
-mesh is not ported (ROADMAP item 14), so no mesh is built and a provider
-without `attach_supervisor` leaves `supervisor` None.  Clients and the
-server run on a transport (service/rpc.py): None = the gRPC wire.
+"cuda" backend is CudaBlsCrypto on the card, over the configured mesh
+(`_make_mesh`), with a MeshSupervisor attached unless the mesh spans
+processes.  Clients and the server
+run on a transport (service/rpc.py): None = the gRPC wire.
 """
 
 from __future__ import annotations
@@ -61,13 +61,15 @@ def _make_crypto(backend: str, private_key: int,
                  device: str = "cuda"):
     """The configured provider: "cuda" is CudaBlsCrypto on `device` (the
     card unless the caller asks for the CPU, where each kernel's plain
-    version runs), "cpu" the host oracle CpuBlsCrypto."""
+    version runs) over the configured mesh, "cpu" the host oracle
+    CpuBlsCrypto."""
     if backend == "cuda":
         from ..crypto.cuda_provider import CudaBlsCrypto
         if config is None:
             return CudaBlsCrypto(private_key, device=device)
         return CudaBlsCrypto(
             private_key, device=device,
+            mesh=_make_mesh(config.mesh, device),
             device_pairing=config.device_pairing_flag,
             g2_table_msm=config.g2_table_msm,
             dispatch_deadline_s=config.dispatch_deadline_s)
@@ -75,6 +77,22 @@ def _make_crypto(backend: str, private_key: int,
         from ..crypto.provider import CpuBlsCrypto
         return CpuBlsCrypto(private_key)
     raise ValueError(f"unknown crypto_backend {backend!r} (cuda|cpu)")
+
+
+def _make_mesh(mode: str, device="cuda"):
+    """config.mesh → CudaBlsCrypto's `mesh`: None for "off"; "local" is
+    every card of this process (one lane on `device` when that is not a
+    card: the CPU's plain kernels); "global" joins the process group
+    first and spans every process's lanes rank-major, and in a
+    one-process run is the same lanes as "local"."""
+    if mode == "off":
+        return None
+    from .. import parallel
+    lanes = None if str(device) == "cuda" else device
+    if mode == "global":
+        parallel.init_multihost()
+        return parallel.global_mesh(device=lanes)
+    return parallel.make_mesh(device=lanes)
 
 
 class Consensus:
@@ -140,16 +158,26 @@ class Consensus:
         breaker = getattr(self.crypto, "breaker", None)
         if breaker is not None and recorder is not None:
             breaker.recorder = recorder
-        # Mesh supervisor: the reference attaches its escalation ladder
-        # (full mesh -> survivor sub-mesh -> single chip -> host oracle)
-        # to any provider that can host one.  The port has no
-        # MeshSupervisor yet (ROADMAP item 14), and CudaBlsCrypto no
-        # attach_supervisor, so `supervisor` stays None, as the
-        # reference leaves it for such a provider.
+        # Mesh supervisor (parallel/supervisor.py): attached to any
+        # provider that can host one, it walks the escalation ladder
+        # (full mesh -> survivor sub-mesh -> single chip -> host
+        # oracle) from device failures; service/main.py wires the
+        # straggler/anomaly detectors onto it and serves it as the
+        # /statusz "ladder" section.  A mesh that spans processes
+        # ("global" across several) has no ladder: its rungs would be
+        # one process's decision, and the group's collectives need all.
         self.supervisor = None
-        if getattr(self.crypto, "attach_supervisor", None) is not None:
-            raise NotImplementedError(
-                "MeshSupervisor is not ported (ROADMAP item 14)")
+        attach_sup = getattr(self.crypto, "attach_supervisor", None)
+        if attach_sup is not None and not getattr(
+                self.crypto, "multiprocess_mesh", False):
+            from ..parallel.supervisor import MeshSupervisor
+
+            self.supervisor = MeshSupervisor(
+                self.crypto, metrics=metrics, recorder=recorder,
+                step_threshold=config.supervisor_step_threshold,
+                probe_successes=config.supervisor_probe_successes,
+                probe_cooldown_s=config.supervisor_probe_cooldown_s)
+            attach_sup(self.supervisor)
         # tracer: the engine emits height/round/QC-verify spans through the
         # same exporter the gRPC layer uses (reference #[instrument]
         # coverage, src/consensus.rs:96,143,209).

@@ -189,9 +189,9 @@ class ServiceRuntime:
                 metrics=self.metrics, recorder=self.recorder,
                 straggler=self.straggler)
             self.metrics.add_status_source("alerts", self.anomaly.statusz)
-            # Mesh resilience: feed a supervisor's ladder the fleet
+            # Mesh resilience: feed the supervisor's ladder the fleet
             # signals and serve it as the /statusz "ladder" section (None
-            # on the port: no MeshSupervisor yet, ROADMAP item 14).
+            # for a provider that hosts no ladder).
             supervisor = self.consensus.supervisor
             if supervisor is not None:
                 supervisor.straggler = self.straggler

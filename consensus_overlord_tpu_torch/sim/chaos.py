@@ -83,11 +83,10 @@ tests/test_adversary.py pins both).
 The port's own copy of consensus_overlord_tpu/sim/chaos.py (the port
 imports nothing of the JAX package).  `generate` is the JAX package's
 draw for draw, so one seed gives one schedule in both packages,
-`device_loss` and `dcn_stall` events included.  Firing those two needs
-the MeshSupervisor and the providers' mesh hooks, which the port does
-not have yet (ROADMAP item 14): a ChaosRunner refuses a schedule that
-holds one (NotImplementedError at construction), and never skips one
-quietly.
+`device_loss` and `dcn_stall` events included.  Those two fire through
+the target provider's mesh hooks (CudaBlsCrypto's or SimDeviceCrypto's
+`inject_device_loss` / `inject_dcn_stall`), and drain waits for every
+MeshSupervisor they touched to climb back to `full_mesh`.
 """
 
 from __future__ import annotations
@@ -118,10 +117,6 @@ MAX_DEFERS = 64
 #: budget slot ("adaptive" is its own kind so schedules and summaries
 #: name it, but budget-wise it IS a byzantine window).
 ADVERSARY_KINDS = ("byzantine", "adaptive")
-
-#: Event kinds that attack a device mesh: generated exactly, but firing
-#: them waits for the port's MeshSupervisor (ROADMAP item 14).
-MESH_KINDS = ("device_loss", "dcn_stall")
 
 
 @dataclass(frozen=True)
@@ -179,10 +174,10 @@ class ChaosSchedule:
         (its own event kind, same budget/window/target machinery).
         tenant_floods / tenant_stalls: SharedFrontier attack windows
         (no-ops, logged, when the fleet has no shared frontier).
-        device_losses / dcn_stalls: mesh-resilience windows, drawn
-        exactly (device_loss lanes from range(mesh_lanes); both use
-        mesh_window_s); the port's ChaosRunner refuses them (ROADMAP
-        item 14).
+        device_losses / dcn_stalls: mesh-resilience windows
+        (inject_device_loss / inject_dcn_stall; no-ops, logged, when
+        the target crypto has no mesh chaos hooks).  device_loss lanes
+        draw from range(mesh_lanes); both use mesh_window_s.
 
         The RNG draw order is append-only: a schedule generated with
         byzantine=0 and device_faults=0 is bit-identical to one from
@@ -280,13 +275,6 @@ class ChaosRunner:
     asserted on."""
 
     def __init__(self, net, schedule: ChaosSchedule):
-        mesh = sorted({e.kind for e in schedule.events
-                       if e.kind in MESH_KINDS})
-        if mesh:
-            raise NotImplementedError(
-                f"chaos: {', '.join(mesh)} events need the MeshSupervisor "
-                "and the providers' mesh hooks, not ported yet (ROADMAP "
-                "item 14)")
         self.net = net
         self.schedule = schedule
         #: Post-hoc log: one dict per fired event (run summaries embed it).
@@ -315,6 +303,13 @@ class ChaosRunner:
         self.tenant_floods: List[dict] = []
         #: tenant_stall windows fired.
         self.tenant_stalls: List[dict] = []
+        #: device_loss / dcn_stall windows fired (mesh resilience).
+        self.device_losses: List[dict] = []
+        self.dcn_stalls: List[dict] = []
+        #: MeshSupervisors touched by mesh chaos (drain waits for their
+        #: ladders to climb back to the top rung so the down-AND-up
+        #: cycle completes in-run).
+        self._supervisors: List = []
         net.controller.on_new_height.append(self._on_height)
 
     def detach(self) -> None:
@@ -487,6 +482,10 @@ class ChaosRunner:
                 await self._tenant_flood(ev, entry)
             elif ev.kind == "tenant_stall":
                 self._tenant_stall(ev, entry)
+            elif ev.kind == "device_loss":
+                self._device_loss(ev, entry)
+            elif ev.kind == "dcn_stall":
+                self._dcn_stall(ev, entry)
             else:
                 logger.warning("chaos: unknown event kind %r", ev.kind)
         except Exception:  # noqa: BLE001 — chaos must not crash the run
@@ -672,6 +671,64 @@ class ChaosRunner:
         entry.update(stats)
         self.tenant_stalls.append(stats)
 
+    # -- mesh-resilience events (device_loss / dcn_stall) ------------------
+
+    def _mesh_provider(self, node_idx: int, hook: str):
+        """The crypto provider whose mesh the event attacks: the shared
+        frontier's provider when the fleet rides one (per-node cryptos
+        only sign there — same targeting as device_fault), else the
+        node's own.  None (logged) when it lacks the chaos hook."""
+        provider = self.net.nodes[node_idx].crypto
+        core = getattr(self.net, "shared_frontier", None)
+        if core is not None:
+            shared = getattr(core, "_provider", None)
+            if shared is not None and hasattr(shared, hook):
+                provider = shared
+        if not hasattr(provider, hook):
+            logger.warning("chaos: node %d crypto has no %s; "
+                           "mesh event skipped", node_idx, hook)
+            return None
+        sup = getattr(provider, "_supervisor", None)
+        if sup is not None and sup not in self._supervisors:
+            self._supervisors.append(sup)
+        return provider
+
+    def _device_loss(self, ev: ChaosEvent, entry: dict) -> None:
+        """Lose one mesh lane for the window: dispatches touching it
+        raise DeviceLossError until the supervisor quarantines the lane
+        and rebuilds a survivor sub-mesh — after which the window is
+        still live but dispatch runs clean (the self-healing proof)."""
+        provider = self._mesh_provider(ev.node, "inject_device_loss")
+        if provider is None:
+            return
+        provider.inject_device_loss(ev.device, ev.duration_s)
+        node = self.net.nodes[ev.node]
+        if node.recorder is not None:
+            node.recorder.record("chaos_device_loss", node=ev.node,
+                                 device=ev.device,
+                                 duration_s=ev.duration_s)
+        stats = {"node": ev.node, "device": ev.device,
+                 "duration_s": ev.duration_s}
+        entry.update(stats)
+        self.device_losses.append(stats)
+
+    def _dcn_stall(self, ev: ChaosEvent, entry: dict) -> None:
+        """Wedge the provider's device calls inside their dispatch
+        window: the watchdog converts the wedge to DispatchTimeout
+        breaker failures within dispatch_deadline_s, and the ladder
+        steps down — bounded latency, never a liveness hole."""
+        provider = self._mesh_provider(ev.node, "inject_dcn_stall")
+        if provider is None:
+            return
+        provider.inject_dcn_stall(ev.duration_s)
+        node = self.net.nodes[ev.node]
+        if node.recorder is not None:
+            node.recorder.record("chaos_dcn_stall", node=ev.node,
+                                 duration_s=ev.duration_s)
+        stats = {"node": ev.node, "duration_s": ev.duration_s}
+        entry.update(stats)
+        self.dcn_stalls.append(stats)
+
     # -- teardown ----------------------------------------------------------
 
     async def drain(self, timeout: float = 10.0) -> None:
@@ -693,6 +750,7 @@ class ChaosRunner:
             self._disarm(idx)
         self._disarm_at.clear()
         await self._settle_breakers(timeout)
+        await self._settle_ladders(timeout)
 
     async def _settle_breakers(self, timeout: float) -> None:
         """Wait until every fault-injected breaker has run a genuine
@@ -730,6 +788,35 @@ class ChaosRunner:
             if b.fault_injected:
                 b.clear_injected_faults()
 
+    async def _settle_ladders(self, timeout: float) -> None:
+        """Wait until every supervisor a mesh event touched has climbed
+        back to the top rung — the down-AND-up half of the self-healing
+        contract (the fleet keeps committing during drain, so clean
+        dispatches keep arriving to probe the ladder up).  Best-effort:
+        a ladder stuck below the top at the deadline is logged; the
+        run's assertions decide whether that fails it."""
+        if not self._supervisors:
+            return
+
+        def recovered() -> bool:
+            return all(s.rung == "full_mesh" for s in self._supervisors)
+
+        loop = asyncio.get_running_loop()
+        deadline = loop.time() + timeout
+        while loop.time() < deadline:
+            if recovered():
+                return
+            await asyncio.sleep(0.05)
+        logger.warning("chaos: ladder(s) still below full_mesh after "
+                       "drain timeout: %s",
+                       [s.statusz()["rung"] for s in self._supervisors])
+
+    @property
+    def ladder_supervisors(self) -> List:
+        """Supervisors the mesh events touched (run assertions read
+        their transition history post-drain)."""
+        return list(self._supervisors)
+
     @property
     def device_faults_effective(self) -> int:
         """Fault-injected breakers whose window actually bit (at least
@@ -754,11 +841,10 @@ class ChaosRunner:
             "device_faults_effective": self.device_faults_effective,
             "tenant_floods": self.tenant_floods,
             "tenant_stalls": self.tenant_stalls,
-            # The mesh kinds never fire here (the constructor refuses
-            # them); the keys keep the JAX package's summary shape.
-            "device_losses": [],
-            "dcn_stalls": [],
-            "ladder_transitions": [],
+            "device_losses": self.device_losses,
+            "dcn_stalls": self.dcn_stalls,
+            "ladder_transitions": [t for s in self._supervisors
+                                   for t in s.statusz()["recent"]],
             # Device-batch throughput while each adversary window was
             # armed: disarm-time minus arm-time batch counts (None =
             # window still open — drain() closes them all).

@@ -29,11 +29,11 @@ chaos cycles with ``--soak-chaos``, samples telemetry drift, gates it
 (exit 3 on a breach) and writes a ledger record (obs/ledger.py).
 ``--critpath-out``, ``--statusz-port``, ``--profile-dir`` (torch.profiler
 captures, obs/prof.py ProfileSession) and ``--straggler-ratio`` are the
-JAX package's observability flags.
-
-Not ported yet (ROADMAP.md item 14): the mesh chaos events
-(``--chaos-device-losses``, ``--chaos-dcn-stalls``), which need the
-MeshSupervisor; a nonzero count is refused (exit 2).
+JAX package's observability flags.  The mesh chaos events
+(``--chaos-device-losses``, ``--chaos-dcn-stalls``) attach a
+MeshSupervisor (parallel/supervisor.py) to the shared provider, or to
+every node's, and the run asserts that every ladder they walked came back
+to ``full_mesh`` (the summary's ``ladder`` block, /statusz "ladder").
 """
 
 from __future__ import annotations
@@ -181,6 +181,28 @@ def _assert_adversarial(metrics, chaos, snapshot, net) -> None:
         assert flood["rejected"] > 0, (
             f"tenant_flood on {flood['tenant']} sent {flood['sent']} "
             f"invalid verifies but none were rejected")
+    # Mesh chaos: every ladder a device_loss/dcn_stall window actually
+    # drove must have RECOVERED — final rung back at full_mesh, with a
+    # step-down and a probe step-up in its history (the down-AND-up
+    # self-healing cycle).  A window no device call ever hit (sub-
+    # threshold path) fires no transition; warn, don't fail.
+    if summary.get("device_losses") or summary.get("dcn_stalls"):
+        walked = [s for s in chaos.ladder_supervisors
+                  if s.statusz()["transitions"]]
+        if not walked:
+            print("warning: mesh chaos window(s) armed but no ladder "
+                  "transition fired (no device call hit the window?)",
+                  file=sys.stderr)
+        for sup in walked:
+            st = sup.statusz()
+            assert st["rung"] == "full_mesh", (
+                f"mesh ladder stuck at {st['rung']!r} after drain "
+                f"(quarantined={st['quarantined']}): {st['recent']}")
+            downs = [t for t in st["recent"] if t["reason"] != "probe"]
+            ups = [t for t in st["recent"] if t["reason"] == "probe"]
+            assert downs and ups, (
+                f"mesh chaos fired but the ladder history shows no "
+                f"down-and-up cycle: {st['recent']}")
     if summary["device_faults_fired"]:
         if chaos.device_faults_effective == 0:
             # The window never bit: this crypto path made no device
@@ -294,15 +316,17 @@ def make_parser() -> argparse.ArgumentParser:
                         "open/half_open/closed transition cycle in "
                         "metrics")
     parser.add_argument("--chaos-device-losses", type=int, default=0,
-                        help="device_loss events (a mesh lane lost for "
-                        "the window): need the MeshSupervisor, not "
-                        "ported yet (ROADMAP item 14); only 0 is "
-                        "accepted")
+                        help="device_loss events: a mesh lane of the "
+                        "target crypto (on a shared frontier, the shared "
+                        "provider's) is lost for the window; the "
+                        "MeshSupervisor quarantines it and rebuilds a "
+                        "survivor sub-mesh, and the run asserts the "
+                        "ladder climbed back to full_mesh")
     parser.add_argument("--chaos-dcn-stalls", type=int, default=0,
-                        help="dcn_stall events (device calls wedged "
-                        "past the dispatch watchdog): need the "
-                        "MeshSupervisor, not ported yet (ROADMAP item "
-                        "14); only 0 is accepted")
+                        help="dcn_stall events: the target crypto's "
+                        "device calls wedge past the dispatch watchdog "
+                        "for the window (DispatchTimeout, exact host "
+                        "re-verify), walking the same ladder")
     parser.add_argument("--chaos-mesh-window-ms", type=float,
                         default=800.0,
                         help="device_loss / dcn_stall window length")
@@ -674,6 +698,32 @@ async def run(args, factory, use_frontier: bool, shards: int,
                               straggler=straggler)
     sampler.add_observer(anomaly.observe_sample)
     fleet = FleetAggregator("sim", sampler.trend)
+    # Mesh resilience (parallel/supervisor.py): a ladder supervisor on
+    # every provider that can host one when the schedule carries mesh
+    # events.  Sim providers walk the ladder as bookkeeping (no kernel
+    # sets to swap); a CudaBlsCrypto swaps its kernel sets.  Fast probe
+    # cadence: sim chains commit every tens of ms, so the down-AND-up
+    # cycle must complete inside a run.
+    supervisors = []
+    if args.chaos_device_losses + args.chaos_dcn_stalls:
+        from ..parallel.supervisor import MeshSupervisor
+
+        def _attach_supervisor(provider):
+            if not hasattr(provider, "attach_supervisor"):
+                return
+            sup = MeshSupervisor(provider, metrics=metrics,
+                                 recorder=event_recorder,
+                                 straggler=straggler, anomaly=anomaly,
+                                 step_threshold=3, probe_successes=4,
+                                 probe_cooldown_s=0.2)
+            provider.attach_supervisor(sup)
+            supervisors.append(sup)
+
+        if shared_core is not None:
+            _attach_supervisor(shared)
+        else:
+            for n in net.nodes:
+                _attach_supervisor(n.crypto)
     statusz_port = None
     if args.statusz_port is not None:
         # The fleet shares one registry; statusz reports node 0's engine
@@ -703,6 +753,11 @@ async def run(args, factory, use_frontier: bool, shards: int,
             metrics.add_status_source("mesh", straggler.statusz)
         metrics.add_status_source("alerts", anomaly.statusz)
         metrics.add_status_source("fleet", fleet.statusz)
+        # Ladder state (rung, quarantine, transition history) of the
+        # first supervisor: the one mesh chaos targets (the shared
+        # provider's, or node 0's).
+        if supervisors:
+            metrics.add_status_source("ladder", supervisors[0].statusz)
         metrics.add_debug_handler(
             "/debug/profile",
             lambda q: session.request(int(q.get("rounds", "1"))))
@@ -755,8 +810,12 @@ async def run(args, factory, use_frontier: bool, shards: int,
                 detail = f" (node {ev.node})"
             elif ev.kind in ("byzantine", "adaptive"):
                 detail = f" ({ev.behavior}, {ev.heights} heights)"
-            elif ev.kind in ("device_fault", "tenant_flood"):
+            elif ev.kind in ("device_fault", "tenant_flood",
+                             "dcn_stall"):
                 detail = f" (node {ev.node}, {ev.duration_s:.1f}s)"
+            elif ev.kind == "device_loss":
+                detail = (f" (node {ev.node}, lane {ev.device}, "
+                          f"{ev.duration_s:.1f}s)")
             elif ev.kind == "tenant_stall":
                 detail = f" ({ev.duration_s:.1f}s)"
             print(f"chaos: {ev.kind} armed at height {ev.at_height}"
@@ -1028,6 +1087,10 @@ async def run(args, factory, use_frontier: bool, shards: int,
               f"traces -> {args.critpath_out}")
     if straggler is not None:
         out["mesh"] = straggler.statusz()
+    if supervisors:
+        # The ladders' disposition (the summary twin of /statusz
+        # "ladder").
+        out["ladder"] = {"supervisors": [s.statusz() for s in supervisors]}
     if chaos is not None:
         out["chaos"] = {
             "seed": chaos_seed,
@@ -1182,16 +1245,15 @@ def main(argv=None, on_start=None) -> dict:
               f"for {args.validators} validators (pass --interval-ms "
               "explicitly to override)")
     # Validated up front: a usage error must not cost a prewarm.
-    if args.chaos_device_losses or args.chaos_dcn_stalls:
-        parser.error("--chaos-device-losses / --chaos-dcn-stalls need the "
-                     "MeshSupervisor and the providers' mesh hooks, not "
-                     "ported yet (ROADMAP item 14)")
     _, n_byzantine = chaos_behaviors(args)
     n_tenant_events = args.chaos_tenant_floods + args.chaos_tenant_stalls
+    n_mesh_events = args.chaos_device_losses + args.chaos_dcn_stalls
     if (n_byzantine or args.chaos_device_faults or args.chaos_adaptive
-            or n_tenant_events) and not args.chaos:
+            or n_tenant_events or n_mesh_events) and not args.chaos:
         parser.error("--chaos-byzantine / --chaos-device-faults / "
-                     "--chaos-adaptive / --chaos-tenant-* need --chaos")
+                     "--chaos-adaptive / --chaos-tenant-* / "
+                     "--chaos-device-losses / --chaos-dcn-stalls "
+                     "need --chaos")
     if args.soak_chaos and not (args.chaos and args.soak_seconds > 0):
         parser.error("--soak-chaos needs --chaos and --soak-seconds")
     device_batched = args.crypto != "simhash"

@@ -27,6 +27,7 @@ from consensus_overlord_tpu_torch.crypto.provider import (
 from consensus_overlord_tpu_torch.crypto.tenancy import SharedFrontier
 from consensus_overlord_tpu_torch.engine.wal import FileWal
 from consensus_overlord_tpu_torch.obs.metrics import Metrics
+from consensus_overlord_tpu_torch.parallel.supervisor import MeshSupervisor
 from consensus_overlord_tpu_torch.sim import (
     ChaosEvent,
     ChaosRunner,
@@ -119,15 +120,50 @@ def test_new_kinds_never_perturb_legacy_event_timing():
 
 
 @pytest.mark.parametrize("kind", ["device_loss", "dcn_stall"])
-def test_runner_refuses_mesh_events(kind):
-    """A schedule holding a mesh event is refused when the runner is
-    built: it raises, naming ROADMAP item 14, and never skips it."""
-    net = SimpleNamespace(controller=SimpleNamespace(on_new_height=[]))
-    sched = ChaosSchedule([ChaosEvent(2, "crash", node=0),
-                           ChaosEvent(3, kind, node=1)])
-    with pytest.raises(NotImplementedError, match="item 14"):
-        ChaosRunner(net, sched)
-    assert net.controller.on_new_height == []
+def test_runner_fires_mesh_events(kind):
+    """A mesh event fires through the target provider's hook: a call in
+    the window fails over to the host with the exact verdict and walks
+    the provider's MeshSupervisor down (a named lane quarantined for
+    device_loss, the single-chip rung for dcn_stall); a clean call after
+    the window climbs it back, and drain finds it at full_mesh.  The
+    summary carries the window and the transitions."""
+    async def main():
+        base = SimHashCrypto(b"\x05" * 32)
+        prov = SimDeviceCrypto(base)
+        sup = MeshSupervisor(prov, step_threshold=1, probe_successes=1,
+                             probe_cooldown_s=0.0)
+        prov.attach_supervisor(sup)
+        node = SimpleNamespace(crypto=prov, recorder=None)
+        net = SimpleNamespace(controller=SimpleNamespace(on_new_height=[]),
+                              nodes=[node, node])
+        ev = ChaosEvent(2, kind, node=1, duration_s=0.2,
+                        device=3 if kind == "device_loss" else -1)
+        runner = ChaosRunner(net, ChaosSchedule([ev]))
+        runner._on_height(2)
+        await asyncio.gather(*list(runner._tasks))
+        h = base.hash(b"block")
+        sig = base.sign(h)
+        pk = base.pub_key
+        assert prov.verify_batch([sig, b"\x00" * len(sig)], [h, h],
+                                 [pk, pk]) == [True, False]  # in the window
+        down = "sub_mesh" if kind == "device_loss" else "single_chip"
+        assert sup.rung == down
+        await asyncio.sleep(0.25)  # the window ends
+        assert prov.verify_signature(sig, h, base.pub_key)
+        await runner.drain(timeout=5)
+        assert sup.rung == "full_mesh"
+        s = runner.summary()
+        assert s["events_fired"] == 1
+        if kind == "device_loss":
+            assert s["device_losses"] == [
+                {"node": 1, "device": 3, "duration_s": 0.2}]
+            assert s["ladder_transitions"][0]["quarantined"] == ["sim:3"]
+        else:
+            assert s["dcn_stalls"] == [{"node": 1, "duration_s": 0.2}]
+        assert [(t["from"], t["to"]) for t in s["ladder_transitions"]] == [
+            ("full_mesh", down), (down, "full_mesh")]
+        assert runner.ladder_supervisors == [sup]
+    run(main())
 
 
 # -- the runs --------------------------------------------------------------------
@@ -448,12 +484,62 @@ def test_liveness_failure_dump_includes_telemetry_trend():
 
 @pytest.mark.parametrize("flag", ["--chaos-device-losses",
                                   "--chaos-dcn-stalls"])
-def test_mesh_chaos_flags_are_refused(flag):
-    """The mesh chaos events wait for the MeshSupervisor: a nonzero count
-    is a usage error (exit 2) naming ROADMAP item 14."""
-    out = _cli("--crypto", "simhash", "--chaos", flag, "1")
+def test_mesh_chaos_flags_need_chaos(flag):
+    """A mesh chaos count without --chaos is a usage error (exit 2), as
+    in the JAX package."""
+    out = _cli("--crypto", "simhash", flag, "1")
     assert out.returncode == 2
-    assert "item 14" in out.stderr
+    assert "need --chaos" in out.stderr
+
+
+def test_seeded_mesh_chaos_run_exits_zero():
+    """The JAX package's seeded mesh chaos run (tests/test_mesh_resilience
+    .py TestMeshChaosRun): device_loss and dcn_stall windows on the shared
+    frontier's SimDeviceCrypto.  The fleet commits every height with no
+    safety violation, the fired events (kind, height, node, lane) are the
+    JAX package's schedule for the seed, and the ladder is back at
+    full_mesh with a down-and-up walk in its history."""
+    argv = ["--validators", "4", "--heights", "6", "--interval-ms", "40",
+            "--crypto", "simhash", "--chaos", "--seed", "7",
+            "--chaos-crashes", "0", "--chaos-stalls", "0",
+            "--chaos-partitions", "0", "--chaos-device-losses", "2",
+            "--chaos-dcn-stalls", "1", "--chaos-mesh-window-ms", "300",
+            "--shared-frontier"]
+    out = _cli(*argv)
+    assert out.returncode == 0, out.stdout[-2000:] + out.stderr[-2000:]
+    summary = json.loads(out.stdout.splitlines()[-1])
+    chaos = summary["chaos"]
+    assert chaos["safety_violations"] == 0
+    args = sim_run.make_parser().parse_args(argv)
+    behaviors, n_byzantine = sim_run.chaos_behaviors(args)
+    want = JaxSchedule.generate(
+        args.seed, args.heights, args.validators,
+        crashes=args.chaos_crashes, stalls=args.chaos_stalls,
+        partitions=args.chaos_partitions, byzantine=n_byzantine,
+        device_faults=args.chaos_device_faults, behaviors=behaviors,
+        byz_window=args.chaos_byz_window,
+        downtime_s=args.chaos_downtime_ms / 1000.0,
+        window_s=args.chaos_window_ms / 1000.0,
+        device_window_s=args.chaos_device_window_ms / 1000.0,
+        adaptive=args.chaos_adaptive,
+        tenant_floods=args.chaos_tenant_floods,
+        tenant_stalls=args.chaos_tenant_stalls,
+        tenant_window_s=args.chaos_tenant_window_ms / 1000.0,
+        device_losses=args.chaos_device_losses,
+        dcn_stalls=args.chaos_dcn_stalls,
+        mesh_window_s=args.chaos_mesh_window_ms / 1000.0)
+    key = (lambda kind, at, node, device:  # noqa: E731
+           (kind, at, node, device if kind == "device_loss" else None))
+    assert sorted(key(e["kind"], e["at_height"], e["node"], e.get("device"))
+                  for e in chaos["events"]) == sorted(
+        key(e.kind, e.at_height, e.node, e.device) for e in want.events)
+    assert chaos["events_fired"] == 3
+    assert len(chaos["device_losses"]) == 2
+    assert len(chaos["dcn_stalls"]) == 1
+    supervisors = summary["ladder"]["supervisors"]
+    assert {s["rung"] for s in supervisors} == {"full_mesh"}
+    reasons = [t["reason"] for s in supervisors for t in s["recent"]]
+    assert "probe" in reasons and any(r != "probe" for r in reasons)
 
 
 def test_cuda_chaos_without_a_card_exits_nonzero():

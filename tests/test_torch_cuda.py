@@ -247,6 +247,36 @@ def test_provider_on_the_card_matches_the_oracle(cuda):
     assert prov.verify_batch(sigs, [h] * 6, voters) == want
 
 
+def test_mesh_on_the_card_matches_the_single_card_and_oracle(cuda):
+    """4 logical lanes of one card: the sharded round equals the
+    single-card round output for output at a batch that splits unevenly
+    (13 lanes), and the mesh provider's verdicts, device pairing on, are
+    CpuBlsCrypto's."""
+    from consensus_overlord_tpu_torch.core.sm3 import sm3_hash
+    from consensus_overlord_tpu_torch.crypto import cuda_provider as card
+    from consensus_overlord_tpu_torch.crypto.provider import CpuBlsCrypto
+    from consensus_overlord_tpu_torch.parallel import sharded
+
+    mesh = sharded.make_mesh(4, device=torch.device("cuda", 0))
+    cpus = [CpuBlsCrypto(0x2222 * (i + 1) + 5) for i in range(13)]
+    prov = card.CudaBlsCrypto(5, device_threshold=1, mesh=mesh)
+    voters = [c.pub_key for c in cpus]
+    prov.update_pubkeys(voters)
+    h = sm3_hash(b"mesh-on-the-card")
+    sigs = [c.sign(h) for c in cpus]
+    sigs[7] = cpus[7].sign(sm3_hash(b"other"))
+    want = [c.verify_signature(s, h, v) for c, s, v in
+            zip(cpus, sigs, voters)]
+    assert prov.verify_batch(sigs, [h] * 13, voters) == want
+    assert prov.pairing_host_fallbacks == 0
+    _, *arrays, _ = prov._host_arrays(sigs, voters, 13)
+    ins = [prov._to_dev(a[:13]) for a in arrays] + [
+        t[mesh.home] for t in prov._pk_device()]
+    got = sharded.sharded_verify_round(mesh)(*ins)
+    for g, w in zip(got, card.verify_round(*ins)):
+        assert torch.equal(g, w)
+
+
 # -- the pairing kernels (csrc/pairing.cu) -----------------------------------------
 
 def _tower_loose(rng, *shape):

@@ -208,6 +208,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                    "consensus_overlord_tpu_torch.obs.metrics",
                    "consensus_overlord_tpu_torch.obs.prof",
                    "consensus_overlord_tpu_torch.obs.telemetry",
+                   "consensus_overlord_tpu_torch.parallel",
+                   "consensus_overlord_tpu_torch.parallel.multihost",
+                   "consensus_overlord_tpu_torch.parallel.sharded",
+                   "consensus_overlord_tpu_torch.parallel.supervisor",
                    "consensus_overlord_tpu_torch.service.brain",
                    "consensus_overlord_tpu_torch.service.config",
                    "consensus_overlord_tpu_torch.service.consensus",

@@ -188,8 +188,8 @@ def test_config_loads_the_reference_fields_from_toml(tmp_path):
 
 @pytest.mark.parametrize("fields, match", [
     ({"crypto_backend": "tpu"}, '"cuda"'),
-    ({"mesh": "local"}, "item 14"),
-    ({"mesh": "global"}, "item 14"),
+    ({"mesh": "ici"}, "off\\|local\\|global"),
+    ({"mesh": "GLOBAL"}, "off\\|local\\|global"),
     ({"frontier_max_batch": 0}, "frontier_max_batch"),
     ({"device_pairing": "maybe"}, "device_pairing"),
     ({"straggler_ratio": 0.5}, "straggler_ratio"),
@@ -197,9 +197,23 @@ def test_config_loads_the_reference_fields_from_toml(tmp_path):
 def test_config_refuses(fields, match):
     with pytest.raises(ValueError, match=match):
         ConsensusConfig.from_dict(fields)
-    if "crypto_backend" not in fields and "mesh" not in fields:
+    if "crypto_backend" not in fields:
         with pytest.raises(ValueError):
             RefConfig.from_dict(fields)
+
+
+@pytest.mark.parametrize("mode", ["local", "global"])
+def test_config_accepts_the_mesh_modes(mode):
+    """The reference's mesh modes load as its config does, and
+    _make_crypto builds the provider over _make_mesh's lanes: on the CPU
+    one lane, so the single-card kernel set, with a MeshSupervisor
+    attached by the service."""
+    config = ConsensusConfig.from_dict({"mesh": mode})
+    assert config.mesh == RefConfig.from_dict({"mesh": mode}).mesh == mode
+    crypto = _make_crypto("cuda", 0x5EED, config, device="cpu")
+    assert crypto._kernels.lanes == 1
+    assert crypto.mesh_device_names() == []
+    assert crypto._current_lane_names() == ["cpu:0"]
 
 
 @pytest.mark.parametrize("on", [True, False])
