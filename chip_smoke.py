@@ -170,7 +170,22 @@ spill in any kernel fails the run.  Then
                    on, on, off (seconds, verifies/s), and the device
                    pairing's own time per flush at 2 and 5 pairs;
   crosscheck       one warm round with CONSENSUS_PAIRING_CROSSCHECK=1:
-                   any device/host verdict mismatch fails the run.
+                   any device/host verdict mismatch fails the run;
+  tooling          the build namespace (compile_cache.build_dir(),
+                   _build/host-<fingerprint>/: the fingerprint's inputs,
+                   a second build_all that must count no miss and a hit
+                   for every library, every library the process loaded
+                   mapped from there; cold and warm build seconds), the
+                   port's lint over the checkout (python -m
+                   consensus_overlord_tpu_torch.analysis --json: exit 0,
+                   no actionable finding; counts by rule, suppressed
+                   ones included) and the multichain twin (python -m
+                   consensus_overlord_tpu_torch.sim.multichain) at its
+                   defaults and with --adversarial 1, one after the
+                   other (FAIRNESS compares queue waits that a
+                   neighbour on the cores skews):
+                   every condition met, no garbage verdict True, each
+                   tenant's sheds and p50 wait printed.
 
 Then each kernel is held against its plain version (tolerance 0:
 integer arithmetic, torch.equal) and timed with CUDA events beside its
@@ -3431,6 +3446,100 @@ def curves_sim(torch, kernels, seed: int) -> dict:
     return out
 
 
+# -- tooling: the build namespace, the port's lint, the multichain twin ----------
+
+def _mapped_libraries() -> set:
+    """Paths of the shared objects mapped into this process."""
+    with open("/proc/self/maps") as f:
+        return {ln.split(None, 5)[5].strip() for ln in f
+                if len(ln.split(None, 5)) == 6 and ".so" in ln}
+
+
+def _multichain_summary(argv, rc: int, out: str, err: str) -> dict:
+    """One multichain run's tenants (sheds, p50 wait) and verdict; a
+    failed condition, a garbage verdict True or a missing line fails
+    the run."""
+    lines = [json.loads(ln) for ln in out.splitlines() if ln.startswith("{")]
+    combined = [d for d in lines
+                if d.get("metric") == "multichain-shared-frontier"]
+    if rc != 0 or len(combined) != 1 or not combined[0]["ok"]:
+        fail(f"multichain {argv}: exit {rc}: {err[-2000:]}")
+    doc = combined[0]
+    if doc["adversarial_flood"]["ok"]:
+        fail(f"multichain {argv}: a garbage verify came back True")
+    tenants = {t: {"sheds": s["sheds"], "p50_wait_ms": s["p50_wait_ms"]}
+               for t, s in doc["tenants"].items()}
+    if len([d for d in lines if d.get("metric") ==
+            "tenant-verify-throughput"]) != len(tenants):
+        fail(f"multichain {argv}: not one line per tenant")
+    return {"argv": argv, "wall_s": doc["value"], "tenants": tenants,
+            "adversarial_flood": doc["adversarial_flood"]}
+
+
+def tooling(kernels, cold_build_s: float) -> dict:
+    """Phase tooling: (a) the build namespace: its fingerprint's inputs
+    and directory, a second build_all that must count no miss and a hit
+    for every library, and every library this process has loaded (each
+    kernel library, the native pairing backend) under build_dir() and
+    mapped from there; (b) the port's lint over the checkout (exit 0,
+    no actionable finding; counts by rule, suppressed ones included);
+    (c) the multichain twin at its defaults and with --adversarial 1,
+    one after the other (its fairness condition compares queue waits of
+    a few milliseconds, which a neighbour on the cores would skew), each
+    meeting its three conditions with no garbage verdict True."""
+    from consensus_overlord_tpu_torch import compile_cache
+    from consensus_overlord_tpu_torch.crypto import native
+
+    t0 = time.perf_counter()
+    where = compile_cache.build_dir()
+    before = compile_cache.stats()
+    warm_s = kernels.build_all()
+    after = compile_cache.stats()
+    libs = sum(len(kernels.spec_libs(s)) for s in kernels.all_specs())
+    hits = after["hits"] - before["hits"]
+    misses = after["misses"] - before["misses"]
+    if misses or hits != libs:
+        fail(f"the second build counted {hits} hits and {misses} misses "
+             f"of {libs} libraries")
+    loaded = sorted({h._name for h in kernels._loaded.values()}
+                    | ({native._lib._name} if native._lib else set()))
+    mapped = _mapped_libraries()
+    stray = [p for p in loaded if os.path.dirname(p) != where
+             or p not in mapped]
+    if not loaded or stray:
+        fail(f"libraries outside {where} or not mapped: {stray}")
+    lint = subprocess.run(
+        [sys.executable, "-m", "consensus_overlord_tpu_torch.analysis",
+         "--json", "--root", ROOT], cwd=ROOT, capture_output=True,
+        text=True, timeout=120)
+    doc = json.loads(lint.stdout) if lint.stdout.strip() else {}
+    if lint.returncode != 0 or doc.get("findings"):
+        fail(f"the port's lint: exit {lint.returncode}: "
+             f"{lint.stdout[-2000:]}{lint.stderr[-2000:]}")
+    suppressed = {}
+    for f in doc["suppressed"]:
+        suppressed[f["rule"]] = suppressed.get(f["rule"], 0) + 1
+    multichain = []
+    for argv in ([], ["--adversarial", "1"]):
+        run = subprocess.run(
+            [sys.executable, "-m", "consensus_overlord_tpu_torch.sim.multichain"]
+            + argv, cwd=ROOT, capture_output=True, text=True, timeout=300)
+        multichain.append(_multichain_summary(argv, run.returncode,
+                                              run.stdout, run.stderr))
+    return {"phase": "tooling", "seconds": time.perf_counter() - t0,
+            "fingerprint": compile_cache.host_fingerprint(),
+            "fingerprint_inputs": compile_cache.fingerprint_inputs(),
+            "build_dir": where, "cold_build_seconds": cold_build_s,
+            "warm_build_seconds": warm_s,
+            "warm_build": {"hits": hits, "misses": misses,
+                           "libraries": libs},
+            "loaded_libraries": [os.path.basename(p) for p in loaded],
+            "lint": {"findings": doc["counts"],
+                     "suppressed": suppressed,
+                     "baselined": doc["baselined"]},
+            "multichain": multichain}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=7)
@@ -3462,7 +3571,8 @@ def main(argv=None) -> int:
          "--format=csv,noheader,nounits"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0])
     card = {"clock_hz": clock_mhz * 1e6}
-    emit({"phase": "build", "nvcc_seconds": kernels.build_all(),
+    build_s = kernels.build_all()
+    emit({"phase": "build", "nvcc_seconds": build_s,
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "card": smi, "max_sm_clock_mhz": clock_mhz,
           "int32_per_s": {k: SMS * r * card["clock_hz"] for k, r in (
@@ -3526,6 +3636,7 @@ def main(argv=None) -> int:
     emit(pairing_ab(torch, prov, s0, sigs[0], hashes[0], pks,
                     torch.cuda.synchronize, card))
     emit(crosscheck(prov, s0, sigs[0], hashes[0], pks))
+    emit(tooling(kernels, build_s))
     # Each kernel's most frequent lane count in a warm round, and the one
     # that carries the most lanes; g1_add at every size of the round (its
     # tree sum launches once at each power of two below the batch).

@@ -956,6 +956,7 @@ class CudaBlsCrypto:
                 t0 = time.perf_counter()
                 if delay:
                     time.sleep(delay)
+                # graftlint: disable=CONC002 -- a profiling sample of a lane's output after the watched readback returned it; its failure is logged and never reaches crypto
                 part.cpu()
                 self.prof.device_stage(name, stage, time.perf_counter() - t0,
                                        round_id=round_id)

@@ -168,6 +168,7 @@ class Ed25519CudaCrypto(Ed25519Crypto):
             pts, dvalid = decompress_lanes(
                 torch.as_tensor(y).to(dev), torch.as_tensor(sign).to(dev),
                 torch.as_tensor(ok).to(dev))
+            # graftlint: disable=CONC002 -- this provider has no dispatch watchdog, as ed25519_tpu.py has none; a device error raises to the caller
             dvalid = dvalid.cpu().numpy()
         valid = dvalid[:n] & dvalid[size:size + n] & s_ok
         if not valid.any():

@@ -1,8 +1,9 @@
 """ctypes bridge to the native BLS12-381 pairing backend (csrc/bls381.c).
 
 The repository's C source is compiled on demand with the system C
-compiler into this package's git-ignored build directory
-(consensus_overlord_tpu_torch/_build/), and only there: the shared object
+compiler into this host's build directory (compile_cache.build_dir():
+consensus_overlord_tpu_torch/_build/host-<fingerprint>/, git-ignored),
+and only there: the shared object
 the JAX package builds beside the source is never loaded.  If no compiler
 is available, ``available()`` is False and the oracle falls back to its
 pure-Python pairing.
@@ -23,11 +24,12 @@ import subprocess
 import threading
 from typing import Iterable, List, Optional, Tuple
 
+from .. import compile_cache
+
 logger = logging.getLogger("consensus_overlord_tpu_torch.native")
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _SRC_PATH = os.path.join(os.path.dirname(_PKG), "csrc", "bls381.c")
-BUILD_DIR = os.path.join(_PKG, "_build")
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -35,16 +37,20 @@ _load_failed = False  # memoized: never retry a failed build per process
 
 
 def _build() -> Optional[str]:
-    """Compile csrc/bls381.c into _build/ (named by the source's hash, so
-    an edited source never loads a stale object); returns the path."""
+    """Compile csrc/bls381.c into the build directory (named by the
+    source's hash, so an edited source never loads a stale object);
+    returns the path."""
     if not os.path.exists(_SRC_PATH):
         return None
     with open(_SRC_PATH, "rb") as f:
         digest = hashlib.sha256(f.read()).hexdigest()[:16]
-    so_path = os.path.join(BUILD_DIR, f"bls381_{digest}.so")
-    if os.path.exists(so_path):
+    so_path = os.path.join(compile_cache.build_dir(),
+                           f"bls381_{digest}.so")
+    try:
+        compile_cache.touch(so_path)  # held now, so no eviction takes it
         return so_path
-    os.makedirs(BUILD_DIR, exist_ok=True)
+    except FileNotFoundError:
+        pass
     # Compile to a temp path and rename into place: concurrent processes
     # sharing a checkout must never dlopen a half-written object.
     tmp_path = f"{so_path}.{os.getpid()}.tmp"
@@ -54,6 +60,8 @@ def _build() -> Optional[str]:
                 [cc, "-O3", "-shared", "-fPIC", "-o", tmp_path, _SRC_PATH],
                 check=True, capture_output=True, timeout=120)
             os.replace(tmp_path, so_path)
+            compile_cache.touch(so_path)
+            compile_cache.evict()
             return so_path
         except (FileNotFoundError, subprocess.CalledProcessError,
                 subprocess.TimeoutExpired, OSError) as e:
@@ -79,6 +87,7 @@ def _load() -> Optional[ctypes.CDLL]:
                         "using the pure-Python pairing path")
             return None
         lib = ctypes.CDLL(so_path)
+        compile_cache.touch(so_path)
         u64p = ctypes.POINTER(ctypes.c_uint64)
         lib.bls381_multi_pairing_is_one.restype = ctypes.c_int
         lib.bls381_multi_pairing_is_one.argtypes = [u64p, u64p,

@@ -2,13 +2,15 @@
 
 Each source under consensus_overlord_tpu_torch/csrc/ is one shared
 library with a plain C interface, compiled by ``nvcc`` for ``sm_90a``
-into consensus_overlord_tpu_torch/_build/ at first use and loaded with
-ctypes, once for each field it serves (``SPEC_LIBS``: BLS12-381's Fq,
-and the 26-limb fields of Ed25519, secp256k1 and SM2).  The field's
-limb count, table size and reduction plans reach the kernels at build
-time: a header generated from ``FieldSpec._plan`` (``plan_header``) is
-written into the field's own directory, _build/<field name>/, and
-included by the sources, so every plan step unrolls over its live
+into this host's build directory (compile_cache.build_dir():
+_build/host-<fingerprint>/, a namespace per host and toolchain, bounded
+in size) at first use and loaded with ctypes, once for each field it
+serves (``SPEC_LIBS``: BLS12-381's Fq, and the 26-limb fields of
+Ed25519, secp256k1 and SM2).  The field's limb count, table size and
+reduction plans reach the kernels at build time: a header generated
+from ``FieldSpec._plan`` (``plan_header``) is written into the field's
+own directory there, <build dir>/<field name>/, and included by the
+sources, so every plan step unrolls over its live
 positions only; g2_point also includes a header generated for it alone
 (``lib_header``: the word programs of ops/g2_words.py).  The library's
 file name carries a hash of its sources, those headers and the flags,
@@ -35,7 +37,6 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
-import shutil
 import subprocess
 import threading
 import time
@@ -48,7 +49,6 @@ from .. import compile_cache
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
-BUILD_DIR = os.path.join(_PKG, "_build")
 PLAN_HEADER = "fq_plans.h"
 
 # -Xptxas -v: ptxas reports each kernel's registers and spills; the
@@ -433,15 +433,15 @@ def spec_libs(spec) -> Tuple[str, ...]:
 
 
 def header_dir(spec) -> str:
-    """The spec's own directory under _build/, which holds its plan
-    header: each spec's sources are compiled with -I there, so two
+    """The spec's own directory in the build directory, which holds its
+    plan header: each spec's sources are compiled with -I there, so two
     specs never share, or race on, one header file."""
-    return os.path.join(BUILD_DIR, spec.name)
+    return os.path.join(compile_cache.build_dir(), spec.name)
 
 
 def _nvcc() -> str:
-    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    if not os.path.exists(path):
+    path = compile_cache.nvcc_path()
+    if path is None:
         raise RuntimeError("nvcc not found: the CUDA kernels of "
                            "consensus_overlord_tpu_torch cannot be built")
     return path
@@ -471,7 +471,8 @@ def _so_path(lib: str, header: str) -> str:
     extra = lib_header(lib)
     if extra is not None:
         h.update(extra[1].encode())
-    return os.path.join(BUILD_DIR, f"{lib}_{h.hexdigest()[:16]}.so")
+    return os.path.join(compile_cache.build_dir(),
+                        f"{lib}_{h.hexdigest()[:16]}.so")
 
 
 def _write_header(spec, header: str, name: str = PLAN_HEADER) -> None:
@@ -489,7 +490,12 @@ def _write_header(spec, header: str, name: str = PLAN_HEADER) -> None:
 
 def _start_build(lib: str, spec, header: str):
     so = _so_path(lib, header)
-    built = os.path.exists(so)
+    try:
+        compile_cache.touch(so)  # held now, so no eviction takes it
+    except FileNotFoundError:
+        built = False
+    else:
+        built = True
     compile_cache.record(hit=built)
     if built:
         return None
@@ -515,6 +521,7 @@ def _finish_build(lib: str, job) -> None:
     with open(f"{so}.log", "w") as f:
         f.write(text)
     os.replace(tmp, so)  # atomic: no process loads a half-written object
+    compile_cache.touch(so)
 
 
 def build_all(specs=None) -> float:
@@ -529,9 +536,11 @@ def build_all(specs=None) -> float:
             header = plan_header(spec)
             jobs += [(lib, _start_build(lib, spec, header))
                      for lib in spec_libs(spec)]
-        for lib, job in jobs:
-            if job is not None:
-                _finish_build(lib, job)
+        built = [(lib, job) for lib, job in jobs if job is not None]
+        for lib, job in built:
+            _finish_build(lib, job)
+        if built:
+            compile_cache.evict()
     return time.perf_counter() - t0
 
 
@@ -571,7 +580,9 @@ def _library(lib: str, spec) -> ctypes.CDLL:
         job = _start_build(lib, spec, header)
         if job is not None:
             _finish_build(lib, job)
+            compile_cache.evict()
         handle = ctypes.CDLL(so)
+        compile_cache.touch(so)
         for fn, argtypes in _LIBS[lib][1].items():
             f = getattr(handle, fn)
             f.argtypes = argtypes

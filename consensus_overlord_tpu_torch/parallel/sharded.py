@@ -234,6 +234,7 @@ def agree(mesh: Mesh, ok: bool) -> bool:
 
     flag = torch.tensor([int(ok)], dtype=torch.int32, device=mesh.home)
     dist.all_reduce(flag, op=dist.ReduceOp.MIN, group=mesh.group)
+    # graftlint: disable=CONC002 -- the group's device-or-host route is a host decision taken before the call dispatches; no device result is read
     return bool(flag.item())
 
 

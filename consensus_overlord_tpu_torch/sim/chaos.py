@@ -231,9 +231,10 @@ class ChaosSchedule:
         # -- new kinds: every draw below is APPENDED after the legacy
         # draws above, so the events above are bit-identical to what
         # the legacy generator produced for this seed.
-        # graftlint: sim001-legacy-draw-boundary — scripts/graftlint.py
-        # (SIM001) pins the draw sites above this line; new event
-        # families must draw below it or every recorded seed re-rolls.
+        # graftlint: sim001-legacy-draw-boundary — the port's graftlint
+        # (consensus_overlord_tpu_torch/analysis, SIM001) pins the draw
+        # sites above this line; new event families must draw below it
+        # or every recorded seed re-rolls.
         for _ in range(adaptive):
             events.append(ChaosEvent(rng.choice(span), "adaptive",
                                      node=-1, behavior="adaptive",

@@ -368,7 +368,7 @@ def test_provider_raises_when_the_kernel_build_fails(cuda, monkeypatch,
         CudaBlsCrypto)
 
     monkeypatch.setattr(kernels, "_nvcc", lambda: str(tmp_path / "nvcc"))
-    monkeypatch.setattr(kernels, "BUILD_DIR", str(tmp_path / "_build"))
+    monkeypatch.setenv("CONSENSUS_TORCH_BUILD_ROOT", str(tmp_path / "_build"))
     monkeypatch.setattr(kernels, "_loaded", {})
     monkeypatch.setattr(kernels, "_tables_set", set())
     with pytest.raises((RuntimeError, OSError)):

@@ -9,6 +9,7 @@ from collections import Counter
 import pytest
 
 import chip_smoke
+from consensus_overlord_tpu_torch import compile_cache
 from consensus_overlord_tpu_torch.ops import kernels
 from consensus_overlord_tpu_torch.ops.field import (BLS12_381_FQ as TFQ,
                                                     BLS12_381_P, ED25519_FQ,
@@ -85,7 +86,7 @@ def test_so_path_follows_the_plan_header():
         path = kernels._so_path(lib, text)
         assert kernels._so_path(lib, text) == path
         assert kernels._so_path(lib, text + "// edited\n") != path
-        assert path.startswith(kernels.BUILD_DIR)
+        assert path.startswith(compile_cache.build_dir())
 
 
 def test_so_path_follows_only_its_own_library_headers(monkeypatch):

@@ -7,8 +7,10 @@ lanes each, join one torch.distributed group over a local coordinator and
 run sharded_verify_round over a batch spanning both, each holding the
 combined aggregates against the host oracle; and a fault on one rank of
 such a group (an injected breaker fault, a lost lane), after which both
-ranks finish with the exact verdicts.  This file is also the worker:
-`python test_torch_multihost.py round|faults RANK WORLD HOST:PORT`.
+ranks finish with the exact verdicts.  One pair of worker processes runs
+both group scenarios in one group, and each test reads its own.  This
+file is also the worker:
+`python test_torch_multihost.py round,faults RANK WORLD HOST:PORT`.
 Tolerance: none (exact)."""
 
 import os
@@ -19,20 +21,33 @@ import sys
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def worker(rank: int, world: int, coordinator: str) -> None:
+def worker(modes: str, rank: int, world: int, coordinator: str) -> None:
+    """Join the group once, run each named scenario in it, printing
+    `<SCENARIO>-OK` after each, and leave the group."""
     sys.path.insert(0, REPO)
-    import numpy as np
     import torch
 
     torch.set_num_threads(1)
+    from consensus_overlord_tpu_torch.parallel import init_multihost
+
+    assert init_multihost(coordinator, world, rank, timeout_s=60.0)
+    for mode in modes.split(","):
+        {"round": round_worker, "faults": fault_worker}[mode](rank, world)
+        print(f"{mode.upper()}-OK", flush=True)
+    torch.distributed.destroy_process_group()
+
+
+def round_worker(rank: int, world: int) -> None:
+    """sharded_verify_round over the rank-major global mesh of 2 logical
+    CPU lanes a process, each process feeding its block."""
+    import numpy as np
+
     from consensus_overlord_tpu_torch.core.sm3 import sm3_hash
     from consensus_overlord_tpu_torch.crypto import bls12381 as oracle
     from consensus_overlord_tpu_torch.ops import bls12381_groups as dev
     from consensus_overlord_tpu_torch.parallel import (
-        global_mesh, host_shard_array, init_multihost, multihost,
-        sharded_verify_round)
+        global_mesh, host_shard_array, multihost, sharded_verify_round)
 
-    assert init_multihost(coordinator, world, rank, timeout_s=60.0)
     assert multihost.process_count() == world
     mesh = global_mesh(2, device="cpu")
     assert mesh.size == 2 * world and mesh.rank == rank
@@ -69,11 +84,9 @@ def worker(rank: int, world: int, coordinator: str) -> None:
         want2 = oracle.g2_add(want2, oracle.g2_mul(p, r))
     assert (tuple(dev.FQ.ints_from_strict(gx.numpy())),
             tuple(dev.FQ.ints_from_strict(gy.numpy()))) == want2
-    torch.distributed.destroy_process_group()
-    print("GROUP-OK", flush=True)
 
 
-def fault_worker(rank: int, world: int, coordinator: str) -> None:
+def fault_worker(rank: int, world: int) -> None:
     """A provider over a 2-process global mesh (one CPU lane each): an
     injected fault on rank 1 alone sends the whole group to the host for
     that call (the route is agreed, so rank 0 never waits in a
@@ -81,18 +94,12 @@ def fault_worker(rank: int, world: int, coordinator: str) -> None:
     mesh, and a lane lost on rank 1 fails only its readback, after the
     collectives, so rank 1 re-verifies on the host and rank 0 takes the
     device's verdicts.  The ladder is refused on such a mesh."""
-    sys.path.insert(0, REPO)
-    import torch
-
-    torch.set_num_threads(1)
     from consensus_overlord_tpu_torch.core.sm3 import sm3_hash
     from consensus_overlord_tpu_torch.crypto import bls12381 as oracle
     from consensus_overlord_tpu_torch.crypto import cuda_provider
-    from consensus_overlord_tpu_torch.parallel import (
-        global_mesh, init_multihost)
+    from consensus_overlord_tpu_torch.parallel import global_mesh
 
     cuda_provider._SCALAR_BITS = 8
-    assert init_multihost(coordinator, world, rank, timeout_s=60.0)
     mesh = global_mesh(1, device="cpu")
     prov = cuda_provider.CudaBlsCrypto(
         0xD1CE, device_threshold=1, qc_device_threshold=10**9, mesh=mesh)
@@ -125,13 +132,10 @@ def fault_worker(rank: int, world: int, coordinator: str) -> None:
     if rank == 1:
         prov.inject_device_loss("p1/cpu:0", 60.0)
     step(2, 1, 2 * rank)
-    torch.distributed.destroy_process_group()
-    print("GROUP-OK", flush=True)
 
 
 if __name__ == "__main__":
-    {"round": worker, "faults": fault_worker}[sys.argv[1]](
-        int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+    worker(sys.argv[1], int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
     sys.exit(0)
 
 import pytest  # noqa: E402
@@ -178,28 +182,33 @@ def test_provider_verdicts_identical_over_global_mesh(monkeypatch):
     sigs = [oracle.sign(sk, h) for sk in sks]
     pks = [oracle.sk_to_pk(sk) for sk in sks]
     sigs[1] = oracle.sign(sks[1], sm3_hash(b"tampered"))
-    verdicts = []
+    verdicts, cache = [], None
     for mesh in (global_mesh(2, device="cpu"), make_mesh(2, device="cpu")):
         provider = cuda_provider.CudaBlsCrypto(
             0xD1CE, device_threshold=1, qc_device_threshold=10**9,
             mesh=mesh)
-        provider.update_pubkeys(pks)
+        if cache is None:  # validated once; the second reuses the cache
+            provider.update_pubkeys(pks)
+            cache = provider._pk
+        else:
+            provider.load_pubkey_cache(cache)
         verdicts.append(provider.verify_batch(sigs, [h] * batch, pks))
         assert provider.degraded_status()["calls"]["verify_batch"] == {
             "device": 1, "host": 0}
     assert verdicts[0] == verdicts[1] == [i != 1 for i in range(batch)]
 
 
-def _run_group(mode: str) -> None:
+@pytest.fixture(scope="module")
+def group_run():
     """Two worker processes of this file in one gloo group over a local
-    coordinator; both must exit 0 with GROUP-OK."""
+    coordinator, running both scenarios; (return codes, outputs)."""
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         port = s.getsockname()[1]
     env = dict(os.environ, PYTHONPATH=REPO, CUDA_VISIBLE_DEVICES="")
     procs = [subprocess.Popen(
-        [sys.executable, os.path.abspath(__file__), mode, str(i), "2",
-         f"127.0.0.1:{port}"], stdout=subprocess.PIPE,
+        [sys.executable, os.path.abspath(__file__), "round,faults", str(i),
+         "2", f"127.0.0.1:{port}"], stdout=subprocess.PIPE,
         stderr=subprocess.STDOUT, text=True, env=env) for i in range(2)]
     outs = []
     try:
@@ -211,20 +220,27 @@ def _run_group(mode: str) -> None:
             if p.poll() is None:
                 p.kill()
                 p.wait()
-    for p, out in zip(procs, outs):
-        assert p.returncode == 0, f"worker failed:\n{out[-4000:]}"
-        assert "GROUP-OK" in out
+    return [p.returncode for p in procs], outs
 
 
-def test_two_process_group_verify_round():
+def _assert_scenario(group_run, mode: str) -> None:
+    """Both workers ran the scenario to its end (`<MODE>-OK`) and exited
+    0."""
+    rcs, outs = group_run
+    for rc, out in zip(rcs, outs):
+        assert rc == 0, f"worker failed:\n{out[-4000:]}"
+        assert f"{mode.upper()}-OK" in out
+
+
+def test_two_process_group_verify_round(group_run):
     """Two processes × 2 logical CPU lanes in one gloo group: the
     rank-major global mesh, each process feeding its block, one
     all_gather a combine, and both processes' aggregates the oracle's."""
-    _run_group("round")
+    _assert_scenario(group_run, "round")
 
 
-def test_two_process_group_survives_a_fault_on_one_rank():
+def test_two_process_group_survives_a_fault_on_one_rank(group_run):
     """A provider over a two-process gloo mesh with a fault on rank 1
     alone (fault_worker): both ranks finish every call with the exact
     verdicts, none waiting on a collective its peer skipped."""
-    _run_group("faults")
+    _assert_scenario(group_run, "faults")

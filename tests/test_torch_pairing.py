@@ -5,10 +5,11 @@ tower.
 
 * Every Fq6/Fq12 op and the Miller step's pieces: the same numpy-seeded
   loose limbs (one element of each batch at the loose bound) through the
-  JAX package's jitted op and the port's, bit-identical loose limbs
-  (integer arithmetic, tolerance 0).  Only small jits are compiled here:
-  the reference's whole Miller loop and final exponentiation are its
-  heaviest compiles and are not.
+  JAX package's op and the port's, bit-identical loose limbs (integer
+  arithmetic, tolerance 0).  The JAX ops run op by op, not as one jit:
+  compiling a whole tower op on the CPU costs more than running it, and
+  integer results do not depend on the mode.  The reference's whole
+  Miller loop and final exponentiation are not run.
 * Whole pairings (plain tower) against the host oracle: the cubed
   pairing value, bilinearity, and multi-pairing verdicts with infinity
   and masked pairs.  A full pairing costs about 2 s on one CPU thread, so
@@ -20,7 +21,6 @@ tower.
   no race between warps or lane groups.
 """
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -53,9 +53,9 @@ def same(jax_out, torch_out) -> bool:
 
 
 def both(fn, *arrays):
-    """fn over the JAX package's tower (jitted) and the port's, on the same
-    numpy inputs."""
-    want = jax.jit(lambda *a: fn(jpr, *a))(*(jnp.asarray(a) for a in arrays))
+    """fn over the JAX package's tower (op by op) and the port's, on the
+    same numpy inputs."""
+    want = fn(jpr, *(jnp.asarray(a) for a in arrays))
     got = fn(tpr, *(torch.from_numpy(a) for a in arrays))
     return want, got
 
@@ -259,23 +259,40 @@ def test_program_hazards(name):
     assert not np.any((d[:, 0] == d[:, 1]))
 
 
+@pytest.fixture(scope="module")
+def warp_order_case():
+    """name → (program, inputs, plain result), made once for every order
+    the warp-order test walks."""
+    cases = {}
+
+    def case(name):
+        if name not in cases:
+            rng = np.random.default_rng(97)
+            if name == "fq12_mul":
+                x, y = (torch.from_numpy(loose(rng, 2, 2, 3, 2))
+                        for _ in range(2))
+                ins = torch.cat([x.reshape(2, 12, N), y.reshape(2, 12, N)], 1)
+                want = tpr.FQ12.mul(x, y)
+            else:
+                px, py = (torch.from_numpy(loose(rng, 1)) for _ in range(2))
+                qx, qy = (torch.from_numpy(loose(rng, 1, 2))
+                          for _ in range(2))
+                ins = torch.cat([px[:, None], py[:, None], qx, qy], 1)
+                want = tpr.miller_loop(px, py, qx, qy)
+            cases[name] = (tprog.program(name, BLS12_381_FQ), ins, want)
+        return cases[name]
+
+    return case
+
+
 @pytest.mark.parametrize("order", ["reverse", 7])
 @pytest.mark.parametrize("name", ["fq12_mul", "miller_product"])
-def test_program_in_any_warp_order_matches_plain(name, order):
+def test_program_in_any_warp_order_matches_plain(warp_order_case, name,
+                                                 order):
     """run_program visits the warps of each epoch in reverse and in a
     seeded shuffled order (the kernel fixes no order between warps): the
     result is the plain version's all the same."""
-    rng = np.random.default_rng(97)
-    prog = tprog.program(name, BLS12_381_FQ)
-    if name == "fq12_mul":
-        x, y = (torch.from_numpy(loose(rng, 2, 2, 3, 2)) for _ in range(2))
-        ins = torch.cat([x.reshape(2, 12, N), y.reshape(2, 12, N)], 1)
-        want = tpr.FQ12.mul(x, y)
-    else:
-        px, py = (torch.from_numpy(loose(rng, 1)) for _ in range(2))
-        qx, qy = (torch.from_numpy(loose(rng, 1, 2)) for _ in range(2))
-        ins = torch.cat([px[:, None], py[:, None], qx, qy], 1)
-        want = tpr.miller_loop(px, py, qx, qy)
+    prog, ins, want = warp_order_case(name)
     got = tprog.run_program(prog, BLS12_381_FQ, ins, order=order)
     assert torch.equal(got.reshape(want.shape), want)
 

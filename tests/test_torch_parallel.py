@@ -193,14 +193,22 @@ def test_sharded_g2_validate(data, mesh8):
         a for a, v in zip(data["pks_aff"], want_valid) if v]
 
 
-def test_sharded_g1_validate_sum(data, mesh8):
-    """The QC signature aggregate with a malformed and an infinity lane
-    (both skipped, as the oracle's sum skips them)."""
+@pytest.fixture(scope="module")
+def g1_sum(data, mesh8):
+    """The QC signature aggregate's inputs, with a malformed and an
+    infinity lane, and the port's sharded output on them (shared by the
+    oracle test and the JAX one)."""
     sigs = list(data["sigs"])
     sigs[2] = b"\x00" * 48
     sigs[11] = oracle.g1_compress(None)
     ins = _g1_ins(sigs)
-    got = sharded.sharded_g1_validate_sum(mesh8)(*ins)
+    return ins, sharded.sharded_g1_validate_sum(mesh8)(*ins)
+
+
+def test_sharded_g1_validate_sum(data, g1_sum):
+    """The QC signature aggregate with a malformed and an infinity lane
+    (both skipped, as the oracle's sum skips them)."""
+    ins, got = g1_sum
     _equal(got, card.g1_validate_sum(*ins))
     want = None
     for i, s in enumerate(data["sigs_aff"]):
@@ -282,10 +290,11 @@ def test_local_twins_run(data):
                        sharded.sharded_miller_product(mesh)(*pargs))
 
 
-def test_g1_validate_sum_equals_the_jax_sharded_function(data, mesh8):
+def test_g1_validate_sum_equals_the_jax_sharded_function(g1_sum):
     """parallel/sharded.py sharded_g1_validate_sum of the JAX package on
     make_mesh(8) (conftest's 8 virtual CPU devices) and the port's on 8
-    logical lanes: the same strict limbs and validity."""
+    logical lanes, over the same inputs with a malformed and an infinity
+    lane: the same strict limbs and validity."""
     import jax
     import jax.numpy as jnp
 
@@ -294,12 +303,9 @@ def test_g1_validate_sum_equals_the_jax_sharded_function(data, mesh8):
         sharded_g1_validate_sum as jax_validate_sum)
 
     assert len(jax.devices()) >= 8
-    sigs = list(data["sigs"])
-    sigs[6] = oracle.g1_compress(None)
-    ins = _g1_ins(sigs)
+    ins, got = g1_sum
     want = jax_validate_sum(make_mesh(8))(
         *(jnp.asarray(t.numpy()) for t in ins))
-    got = sharded.sharded_g1_validate_sum(mesh8)(*ins)
     for w, g in zip(want, got):
         assert np.array_equal(np.asarray(w), g.numpy())
 

@@ -9,7 +9,10 @@ and TestThresholdKnobs, and of tests/test_pairing.py test_verify_aggregated.
 
 device_threshold=1 sends every batch through the device path, which on
 CPU tensors runs each kernel's plain version; the device pairing runs the
-plain tower (about 2.5 s a flush), so only one test turns it on."""
+plain tower (about 2.5 s a flush), so only one test turns it on.  The JAX
+jits run op by op (their Python functions, `__wrapped__`): compiling one
+whole costs more on the CPU than running it, and integer results do not
+depend on the mode."""
 
 import sys
 
@@ -75,7 +78,8 @@ def test_g1_validate_sum_matches_jax(cpus):
                        bytes([0xC0]) + b"\x00" * 47]
     parsed = dev.parse_g1_compressed(sigs)
     ins = (parsed.x, parsed.sign, parsed.infinity, parsed.wellformed)
-    want = tpu_provider._g1_validate_sum(*(jnp.asarray(a) for a in ins))
+    want = tpu_provider._g1_validate_sum.__wrapped__(
+        *(jnp.asarray(a) for a in ins))
     got = cuda_provider.g1_validate_sum(*(torch.from_numpy(a) for a in ins))
     for w, g in zip(want, got):
         assert np.array_equal(np.asarray(w), g.numpy())
@@ -101,8 +105,8 @@ def test_g2_sum_rows_matches_jax(cpus):
         assert np.array_equal(np.asarray(j), p.numpy())
     rows = np.array([3, 1, 4, 1, 5, 0, 0, 0], np.int64)
     mask = np.arange(8) < 5
-    want = tpu_provider._g2_sum_rows(jnp.asarray(rows), jnp.asarray(mask),
-                                     jx, jy, jz)
+    want = tpu_provider._g2_sum_rows.__wrapped__(
+        jnp.asarray(rows), jnp.asarray(mask), jx, jy, jz)
     got = cuda_provider.g2_sum_rows(torch.from_numpy(rows),
                                     torch.from_numpy(mask), px, py, pz)
     for w, g in zip(want, got):

@@ -11,7 +11,7 @@ with the pubkey cache's capacity ladder cut to one 8-row rung, so a
 table build stays small; pubkeys validate on the host (the QC
 threshold is high) and the pairing is the host's."""
 
-import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -46,17 +46,17 @@ def _g2_points(rng, k):
 def test_table_build_and_msm_bit_equal_to_jax():
     """windows = 2, digits = 4 over R = 3 rows (an identity row among
     them), B = 5 lanes with repeated rows and an all-zero (masked)
-    lane: the tables and the sum limb for limb as the JAX jits give
-    them."""
+    lane: the tables and the sum limb for limb as the JAX functions give
+    them (run op by op: compiling them costs more than running them)."""
     rng = np.random.default_rng(5)
     pts = _g2_points(rng, 2) + [None]
     scalars = [0b1011, 0b0110, 0, 0b1111, 0b0001]
     rows = np.array([0, 1, 1, 2, 0], np.int32)
     bits = _bits(scalars, 4)
 
-    jtab = jax.jit(lambda p: jdev.G2.msm_table_build(p, 2, 4))(
-        jdev.g2_from_oracle(pts))
-    want = jax.jit(jdev.G2.msm_from_tables)(jtab, rows, bits)
+    jtab = jdev.G2.msm_table_build(jdev.g2_from_oracle(pts), 2, 4)
+    want = jdev.G2.msm_from_tables(jtab, jnp.asarray(rows),
+                                   jnp.asarray(bits))
     ttab = tdev.G2.msm_table_build(tdev.g2_from_oracle(pts), 2, 4)
     got = tdev.G2.msm_from_tables(ttab, torch.from_numpy(rows),
                                   torch.from_numpy(bits))
