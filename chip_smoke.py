@@ -185,7 +185,22 @@ spill in any kernel fails the run.  Then
                    other (FAIRNESS compares queue waits that a
                    neighbour on the cores skews):
                    every condition met, no garbage verdict True, each
-                   tenant's sheds and p50 wait printed.
+                   tenant's sheds and p50 wait printed;
+  tools            the port's operator tools, each a subprocess on the
+                   card (tools_phase): profile_verify at 8192 lanes, 4
+                   measured rounds, the first traced by torch.profiler,
+                   whose split of a warm round (parse, dispatch,
+                   readback, pairing ms) is printed on a line of its own
+                   (verify_split, with the round's time outside the
+                   four; device pairing on, no host fallback, a trace
+                   written); profile_verify over 4 logical lanes at
+                   1024 with the sharded probe and a straggler injected
+                   on lane cuda:0/2, the only lane flagged; pairing_smoke
+                   at 4 sets, alone and over 4 lanes with lane 2 lost
+                   (the supervisor's 3-lane sub-mesh), both exit 0;
+                   warm_cache at rungs 32 and 128, its build 10 hits and
+                   no miss; the ledger CLI's check over the two profile
+                   records, exit 0.
 
 Then each kernel is held against its plain version (tolerance 0:
 integer arithmetic, torch.equal) and timed with CUDA events beside its
@@ -213,7 +228,8 @@ rows of the kernels line give `lanes` for `ms` and `plain_lanes` for
 `plain_ms`).  Each phase prints one JSON line; the kernels line, the
 card's name and power limit, and the contract line close the output.  A profiled warm round, last so that the profiler touches no
 host-clock phase, reports the device-busy time by kernel.  Any failure exits non-zero.  Exits 2 without a result when no
-GPU is visible; fixtures are cached under .smoke_fixtures/.
+GPU is visible; fixtures (consensus_overlord_tpu_torch/tools/fixtures.py)
+are cached under .smoke_fixtures/.
 """
 
 from __future__ import annotations
@@ -262,44 +278,12 @@ def fail(msg: str) -> None:
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
 
 
-# -- fixtures ------------------------------------------------------------------
-
 def make_fixtures(seed: int, validators: int, nhash: int = 3):
-    """Validator keys sk_i = s0 + i and their signatures on `nhash` vote
-    hashes, built incrementally (pk_i = pk_{i-1} + G2, sig_i = sig_{i-1} +
-    H) with the oracle's affine adds; cached by (seed, validators)."""
-    import numpy as np
-    from consensus_overlord_tpu_torch.core.sm3 import sm3_hash
-    from consensus_overlord_tpu_torch.crypto import bls12381 as oracle
-
-    s0 = int.from_bytes(hashlib.sha256(
-        f"chip_smoke:{seed}".encode()).digest(), "big") % oracle.R
-    hashes = [sm3_hash(f"chip_smoke:{seed}:block:{g}".encode())
-              for g in range(nhash)]
-    path = os.path.join(FIXTURE_DIR, f"fixtures_{seed}_{validators}.npz")
-    if os.path.exists(path):
-        z = np.load(path)
-        pks = [bytes(r) for r in z["pks"]]
-        sigs = [[bytes(r) for r in z["sigs"][g]] for g in range(nhash)]
-        return s0, hashes, pks, sigs
-    h_pts = [oracle.hash_to_g1(h) for h in hashes]
-    pk = oracle.g2_mul(oracle.G2_GEN, s0)
-    sig = [oracle.g1_mul(hp, s0) for hp in h_pts]
-    pks, sigs = [], [[] for _ in range(nhash)]
-    for _ in range(validators):
-        pks.append(oracle.g2_compress(pk))
-        for g in range(nhash):
-            sigs[g].append(oracle.g1_compress(sig[g]))
-        pk = oracle.g2_add(pk, oracle.G2_GEN)
-        sig = [oracle.g1_add(s, hp) for s, hp in zip(sig, h_pts)]
-    os.makedirs(FIXTURE_DIR, exist_ok=True)
-    tmp = f"{path}.{os.getpid()}.npz"
-    np.savez(tmp, pks=np.frombuffer(b"".join(pks), np.uint8).reshape(
-                 validators, 96),
-             sigs=np.frombuffer(b"".join(b"".join(s) for s in sigs),
-                                np.uint8).reshape(nhash, validators, 48))
-    os.replace(tmp, path)
-    return s0, hashes, pks, sigs
+    """tools/fixtures.py make_fixtures (imported at the call, so that this
+    script starts, and says so, where the port is missing)."""
+    from consensus_overlord_tpu_torch.tools.fixtures import (
+        make_fixtures as build)
+    return build(seed, validators, nhash)
 
 
 # -- kernel measurement ----------------------------------------------------------
@@ -3540,6 +3524,140 @@ def tooling(kernels, cold_build_s: float) -> dict:
             "multichain": multichain}
 
 
+TOOLS_PV = "consensus_overlord_tpu_torch.tools.profile_verify"
+TOOLS_MESH_LANES = 1024
+TOOLS_STRAGGLER = f"{MESH_DEVICE}/2"
+
+
+def _tool_record(argv, run) -> dict:
+    """The ledger record a tool printed last on its stdout; a non-zero
+    exit or no record fails the run."""
+    lines = [ln for ln in run.stdout.splitlines() if ln.startswith("{")]
+    if run.returncode != 0 or not lines:
+        fail(f"{' '.join(argv)}: exit {run.returncode}: "
+             f"{run.stdout[-2000:]}{run.stderr[-2000:]}")
+    return json.loads(lines[-1])
+
+
+def tools_phase(kernels, smi) -> None:
+    """Phase tools: the port's operator tools, each a subprocess on the
+    card.  profile_verify at LANES lanes (4 measured rounds after a warm
+    one, the first traced by torch.profiler): its split of the warm
+    round into parse, dispatch, readback and pairing is printed on a
+    line of its own (phase verify_split), and it must pair on the card
+    with no host fallback and write its trace; profile_verify over
+    MESH_LANES logical lanes at TOOLS_MESH_LANES lanes with the sharded
+    probe and a straggler injected on lane 2, which must be the only
+    lane flagged; then, at once (no timing is read there), pairing_smoke
+    at 4 sets on one device and over MESH_LANES lanes with lane 2 lost
+    (both exit 0), and warm_cache at rungs 32 and 128, whose build must
+    count a hit for every library and no miss; last the ledger CLI's
+    check over the two profile records (exit 0: the mesh rung is a
+    metric family of its own, so the gate flags them incomparable)."""
+    import tempfile
+
+    from consensus_overlord_tpu_torch.tools.profile_verify import STAGES
+
+    t0 = time.perf_counter()
+    steps = {}
+
+    def tool(name, argv, timeout=300):
+        t = time.perf_counter()
+        run = subprocess.run([sys.executable, "-m", *argv], cwd=ROOT,
+                             capture_output=True, text=True,
+                             timeout=timeout)
+        steps[name] = time.perf_counter() - t
+        return run
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tools_") as tmp:
+        argv = [TOOLS_PV, str(LANES), "--iters", "4", "--profile-dir",
+                os.path.join(tmp, "trace")]
+        split = _tool_record(argv, tool("profile_verify", argv))
+        trace = os.path.join(split["trace_dir"] or "", "trace.json")
+        if (set(split["stages_ms"]) != set(STAGES)
+                or not split["device_pairing"]
+                or split["pairing_host_fallbacks"]
+                or not os.path.exists(trace)):
+            fail(f"profile_verify {LANES}: stages "
+                 f"{sorted(split['stages_ms'])}, device pairing "
+                 f"{split['device_pairing']}, host fallbacks "
+                 f"{split['pairing_host_fallbacks']}, trace {trace}")
+        emit({"phase": "verify_split", "card": smi, "lanes": LANES,
+              "iters": split["iters"], "stages_ms": split["stages_ms"],
+              "full_ms": split["full_ms"],
+              # hash_to_g1 and the pairing's issue fall between the
+              # provider's dispatch and readback stages.
+              "unobserved_ms": split["full_ms"] - sum(
+                  split["stages_ms"].values()),
+              "verifies_per_s": split["verifies_per_s"],
+              "first_touch_ms": split["first_touch_ms"],
+              "occupancy": split["occupancy"],
+              "trace_bytes": os.path.getsize(trace)})
+        argv = [TOOLS_PV, str(TOOLS_MESH_LANES), "--mesh", str(MESH_LANES),
+                "--sharded-probe", "--inject-straggler", TOOLS_STRAGGLER]
+        mesh = _tool_record(argv, tool("profile_verify --mesh", argv))
+        if mesh["stragglers"] != [TOOLS_STRAGGLER]:
+            fail(f"profile_verify --mesh: flagged {mesh['stragglers']}, "
+                 f"wanted only {TOOLS_STRAGGLER}")
+        t = time.perf_counter()
+        jobs = {}
+        for name, argv in (
+                ("pairing_smoke", ["pairing_smoke", "4"]),
+                ("pairing_smoke --mesh", ["pairing_smoke", "4", "--mesh",
+                                          str(MESH_LANES), "--inject-loss",
+                                          "2"]),
+                ("warm_cache", ["warm_cache", "32", "128"])):
+            argv[0] = f"consensus_overlord_tpu_torch.tools.{argv[0]}"
+            jobs[name] = subprocess.Popen(
+                [sys.executable, "-m", *argv], cwd=ROOT, text=True,
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+        outs, failed = {}, []
+        try:
+            for name, job in jobs.items():
+                out, err = job.communicate(timeout=300)
+                outs[name] = out
+                if job.returncode != 0:
+                    failed.append(f"{name}: exit {job.returncode}: "
+                                  f"{out[-2000:]}{err[-2000:]}")
+        finally:
+            for job in jobs.values():
+                if job.poll() is None:
+                    job.kill()
+                    job.wait()
+        if failed:
+            fail("; ".join(failed))
+        steps["pairing_smoke and warm_cache, at once"] = \
+            time.perf_counter() - t
+        build = re.search(r"build: (\d+) hits, (\d+) misses",
+                          outs["warm_cache"])
+        libs = sum(len(kernels.spec_libs(s)) for s in kernels.all_specs())
+        if not build or (int(build[1]), int(build[2])) != (libs, 0):
+            fail(f"warm_cache: {outs['warm_cache'][-2000:]}")
+        records = []
+        for name, rec in (("profile", split), ("profile_mesh", mesh)):
+            records.append(os.path.join(tmp, f"{name}.json"))
+            with open(records[-1], "w") as f:
+                json.dump(rec, f)
+        argv = ["consensus_overlord_tpu_torch.obs.ledger", "check",
+                *records]
+        check = tool("ledger check", argv, timeout=60)
+        if check.returncode != 0:
+            fail(f"ledger check: exit {check.returncode}: "
+                 f"{check.stdout[-2000:]}{check.stderr[-2000:]}")
+    emit({"phase": "tools", "seconds": time.perf_counter() - t0,
+          "steps_s": steps,
+          "mesh": {"lanes": mesh["n"], "stages_ms": mesh["stages_ms"],
+                   "stragglers": mesh["stragglers"],
+                   "sharded": {k: v for k, v in mesh["sharded"].items()
+                               if k.endswith("_s") and
+                               isinstance(v, float)}},
+          "pairing_smoke": {k: v.strip().splitlines()[-1]
+                            for k, v in outs.items()
+                            if k.startswith("pairing_smoke")},
+          "warm_cache": outs["warm_cache"].strip().splitlines(),
+          "ledger_check": check.stdout.strip().splitlines()})
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=7)
@@ -3637,6 +3755,7 @@ def main(argv=None) -> int:
                     torch.cuda.synchronize, card))
     emit(crosscheck(prov, s0, sigs[0], hashes[0], pks))
     emit(tooling(kernels, build_s))
+    tools_phase(kernels, smi)
     # Each kernel's most frequent lane count in a warm round, and the one
     # that carries the most lanes; g1_add at every size of the round (its
     # tree sum launches once at each power of two below the batch).

@@ -42,6 +42,19 @@ and the comparison layer a single source of truth:
                    tail is a plateau (a plateau is a to-do, not a
                    breakage — BENCH_r05 vs r04 must pass).
 
+The CLI, scripts/ledger.py's twin with its subcommands, flags and exit
+codes (`main`):
+
+    python -m consensus_overlord_tpu_torch.obs.ledger show  BENCH_r05.json
+    python -m consensus_overlord_tpu_torch.obs.ledger diff  A.json B.json
+    python -m consensus_overlord_tpu_torch.obs.ledger trend BENCH_r*.json
+    python -m consensus_overlord_tpu_torch.obs.ledger check BENCH_r*.json
+
+`check` exits 1 when the newest record regressed the headline metric
+past --max-regression or a stage mean past --max-stage-blowup, else 0;
+a trailing plateau fails only under --fail-on-plateau.  Thresholds are
+percent on the command line (5 = 5%).
+
 Everything here is stdlib-only and torch-free at import time (the CLI
 runs `check` in CI lanes that never touch a device); env_fingerprint
 reads device facts only from an ALREADY-imported torch whose CUDA is
@@ -58,6 +71,7 @@ version change as environment drift beside a jax one.
 
 from __future__ import annotations
 
+import argparse
 import json
 import os
 import platform
@@ -626,3 +640,164 @@ def check(records: Sequence[BenchRecord],
                 f"within +/-{plateau_band * 100:.1f}% — the curve has "
                 f"stopped climbing", fatal=fail_on_plateau))
     return findings
+
+
+# ---------------------------------------------------------------------------
+# the CLI (scripts/ledger.py's twin)
+# ---------------------------------------------------------------------------
+
+def _fmt(v, nd=2):
+    return "-" if v is None else f"{v:,.{nd}f}"
+
+
+def cmd_show(args) -> int:
+    rec = load_record(args.file)
+    print(json.dumps(rec.to_dict(), indent=2))
+    return 0
+
+
+def cmd_diff(args) -> int:
+    a = load_record(args.a)
+    b = load_record(args.b)
+    deltas = diff(a, b, throughput_band=args.band / 100.0,
+                  stage_band=args.stage_band / 100.0)
+    if not deltas:
+        print(f"{a.run} vs {b.run}: no comparable dimensions "
+              "(records carry no shared numeric fields)")
+        return 0
+    print(f"{a.run} -> {b.run}")
+    for d in deltas:
+        print("  " + d.describe())
+    worst = [d for d in deltas if d.verdict == "regressed"]
+    print(f"{len(deltas)} dimension(s): "
+          f"{sum(d.verdict == 'improved' for d in deltas)} improved, "
+          f"{sum(d.verdict == 'noise' for d in deltas)} within noise, "
+          f"{len(worst)} regressed")
+    return 0
+
+
+def cmd_trend(args) -> int:
+    records = load_records(args.files)
+    report = trend(records, plateau_runs=args.plateau_runs,
+                   plateau_band=args.plateau_band / 100.0)
+    unit = next((r.unit for r in records if r.unit), "")
+    # A glob can sweep a whole family of distinct metrics: name each
+    # row's metric and drop the single trailing unit line.
+    mixed = len({(r.metric, r.unit) for r in records}) > 1
+    print(f"{'run':<10} {'value':>14} {'delta%':>9} {'vs_base':>8} "
+          f"{'occ':>6}  note")
+    for row in report["rows"]:
+        note = []
+        if mixed:
+            note.append(f"{row['metric']} [{row['unit'] or '-'}]")
+        if row.get("plateau"):
+            note.append("<- plateau")
+        for k, v in (row.get("env_drift") or {}).items():
+            note.append(f"env {k}: {v}")
+        delta = row.get("delta_pct")
+        print(f"{row['run']:<10} {_fmt(row['value']):>14} "
+              f"{('%+.2f' % delta) if delta is not None else '-':>9} "
+              f"{_fmt(row['vs_baseline']):>8} "
+              f"{_fmt(row['occupancy']):>6}  {' | '.join(note)}")
+    if unit and not mixed:
+        print(f"(value unit: {unit})")
+    for p in report["plateaus"]:
+        print(f"PLATEAU: {p['from']} -> {p['to']} flat across {p['runs']} "
+              f"runs (every delta within "
+              f"+/-{report['plateau_band_pct']:.1f}%)")
+    if not report["plateaus"]:
+        print("no plateau in the trajectory "
+              f"(band +/-{report['plateau_band_pct']:.1f}%, "
+              f"min {report['plateau_runs']} runs)")
+    return 0
+
+
+def cmd_check(args) -> int:
+    records = load_records(args.files)
+    if len(records) == 1:
+        # A lone record has no predecessor: the gate is the schema check
+        # load_record already made, and the record passes as a baseline.
+        cur = records[0]
+        print(f"ok (baseline): {cur.run} is the first record "
+              f"({cur.metric} = {_fmt(cur.value)} {cur.unit}) — "
+              "nothing to compare against yet")
+        return 0
+    findings = check(records,
+                     max_regression=args.max_regression / 100.0,
+                     max_stage_blowup=args.max_stage_blowup / 100.0,
+                     plateau_runs=args.plateau_runs,
+                     plateau_band=args.plateau_band / 100.0,
+                     fail_on_plateau=args.fail_on_plateau)
+    fatal = [f for f in findings if f.fatal]
+    for f in findings:
+        tag = "FAIL" if f.fatal else "FLAG"
+        print(f"{tag} [{f.kind}] {f.detail}")
+    cur = records[-1]
+    if not findings:
+        print(f"ok: {cur.run} holds the line "
+              f"({cur.metric} = {_fmt(cur.value)} {cur.unit})")
+    elif not fatal:
+        print(f"ok (flagged): {cur.run} passes the gate")
+    return 1 if fatal else 0
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(
+        prog="ledger",
+        description="perf-ledger diff/trend/check over BenchRecord JSON")
+    sub = ap.add_subparsers(dest="command", required=True)
+
+    p = sub.add_parser("show", help="normalize one artifact to the "
+                       "canonical BenchRecord shape")
+    p.add_argument("file")
+    p.set_defaults(fn=cmd_show)
+
+    p = sub.add_parser("diff", help="noise-banded per-dimension deltas "
+                       "between two records")
+    p.add_argument("a")
+    p.add_argument("b")
+    p.add_argument("--band", type=float, default=THROUGHPUT_BAND * 100,
+                   help="headline-metric noise band, percent (default "
+                   "%(default)s)")
+    p.add_argument("--stage-band", type=float,
+                   default=STAGE_BAND * 100,
+                   help="stage-mean noise band, percent (default "
+                   "%(default)s — stage means are few-sample and noisy)")
+    p.set_defaults(fn=cmd_diff)
+
+    for name, help_ in (("trend", "trajectory table + plateau runs"),
+                        ("check", "CI gate: nonzero exit on regression "
+                         "or stage blowup in the newest record")):
+        p = sub.add_parser(name, help=help_)
+        p.add_argument("files", nargs="+",
+                       help="records in run order (BENCH_r*.json glob "
+                       "order is already correct)")
+        p.add_argument("--plateau-runs", type=int,
+                       default=PLATEAU_RUNS,
+                       help="min consecutive flat runs to flag "
+                       "(default %(default)s)")
+        p.add_argument("--plateau-band", type=float,
+                       default=PLATEAU_BAND * 100,
+                       help="flatness band, percent (default %(default)s)")
+        if name == "check":
+            p.add_argument("--max-regression", type=float,
+                           default=MAX_REGRESSION * 100,
+                           help="headline regression limit, percent "
+                           "(default %(default)s)")
+            p.add_argument("--max-stage-blowup", type=float,
+                           default=MAX_STAGE_BLOWUP * 100,
+                           help="stage-mean growth limit, percent "
+                           "(default %(default)s)")
+            p.add_argument("--fail-on-plateau", action="store_true",
+                           help="treat a trailing plateau as fatal "
+                           "(soak/owner lanes that demand progress)")
+            p.set_defaults(fn=cmd_check)
+        else:
+            p.set_defaults(fn=cmd_trend)
+
+    args = ap.parse_args(argv)
+    return args.fn(args)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -22,7 +22,10 @@ tensors it runs ``mul_plain``, the staircase form of the same
 convolution and reduction.  ``inv`` of CUDA tensors runs its product
 chain in one launch of csrc/pairing.cu (``kernels.fq_inv``) where that
 library is built for the spec.
-Every other op is plain PyTorch on whatever device the tensors are on.
+Every other op is plain PyTorch on whatever device the tensors are on,
+except that on the CPU the reductions and mul_plain's convolution run
+the same integer steps on numpy views of the tensors (torch's per-call
+cost dominates at these sizes).
 """
 
 from __future__ import annotations
@@ -37,6 +40,14 @@ from . import kernels
 Tensor = torch.Tensor
 
 _I32_MAX = 2**31 - 1
+
+#: The calls of the plain arithmetic that differ between array libraries
+#: (concatenate, zeros shaped like an operand's kind, int32): torch for
+#: device tensors, numpy for views of CPU tensors, whose per-call cost on
+#: these small arrays is a fraction of torch's; the integers are the same.
+_TORCH_OPS = (torch.cat, lambda x, shape: x.new_zeros(shape), torch.int32)
+_NUMPY_OPS = (np.concatenate, lambda x, shape: np.zeros(shape, x.dtype),
+              np.int32)
 
 
 def _digits(v: int, b: int, n: int) -> List[int]:
@@ -189,27 +200,39 @@ class FieldSpec:
         """Reduce a wide non-negative accumulator (trailing axis =
         positions, per-position upper bounds as exact Python ints) to n
         loose limbs congruent mod p, following the planned steps."""
-        b, n, mask = self.b, self.n, self.mask
         if x.shape[-1] != len(bounds):
             raise ValueError("bounds do not match the accumulator width")
         plan = self._plan_memo.get(bounds) or self._plan(list(bounds))
+        if x.device.type == "cpu":
+            # graftlint: disable=CUDA001 -- a CPU tensor's numpy view (no device sync): the same integer steps at a fraction of torch's per-call cost on these small arrays
+            fold = self.const("fold", x.device).numpy()
+            # graftlint: disable=CUDA001 -- as above, a view of a CPU tensor
+            return torch.from_numpy(self._run_plan(x.numpy(), plan, fold,
+                                                   _NUMPY_OPS))
+        return self._run_plan(x, plan, self.const("fold", x.device),
+                              _TORCH_OPS)
+
+    def _run_plan(self, x, plan, fold, ops):
+        """The planned steps on x, a torch tensor or (on the CPU) a numpy
+        array; `ops` are that library's concatenate, zeros and int32."""
+        b, n, mask = self.b, self.n, self.mask
+        cat, zeros, int32 = ops
         for step, arg in plan:
             if step == "pad":
-                x = torch.cat([x, x.new_zeros(x.shape[:-1] + (arg,))], -1)
+                x = cat([x, zeros(x, x.shape[:-1] + (arg,))], -1)
             elif step == "fold":
-                fold = self.const("fold", x.device)
                 if arg == 1:
                     x = x[..., :n] + x[..., n:] * fold[0]
                 else:
                     x = x[..., :n] + (x[..., n:, None] * fold[:arg]).sum(
-                        -2, dtype=torch.int32)
+                        -2, dtype=int32)
             else:  # carry: position i keeps its low b bits plus the
                 # carry of position i − 1; arg = 1 widens by one position
                 # for the top carry, else the top carry is provably 0.
                 c = x >> b
                 x = x & mask
                 if arg:
-                    x = torch.cat([x, c[..., -1:]], -1)
+                    x = cat([x, c[..., -1:]], -1)
                     x[..., 1:-1] += c[..., :-1]
                 else:
                     x[..., 1:] += c[..., :-1]
@@ -252,15 +275,27 @@ class FieldSpec:
         """The plain PyTorch multiply: the outer product P[i,j] = x_i·y_j,
         each row i right-shifted by i through a pad-flatten-rerow
         (staircase), summed to the 2n−1 convolution positions, then the
-        planned reduction — the arithmetic of the JAX FieldSpec.mul."""
-        n = self.n
+        planned reduction — the arithmetic of the JAX FieldSpec.mul.  On
+        the CPU the product runs on numpy views, as _reduce does."""
         x, y = torch.broadcast_tensors(x, y)
+        if x.device.type == "cpu":
+            # graftlint: disable=CUDA001 -- views of CPU tensors (no device sync), as in _reduce
+            acc = torch.from_numpy(self._conv(x.numpy(), y.numpy(),
+                                              _NUMPY_OPS))
+        else:
+            acc = self._conv(x, y, _TORCH_OPS)
+        return self._reduce(acc, self._mul_bounds)
+
+    def _conv(self, x, y, ops):
+        """The 2n−1 convolution positions of x·y (torch tensors, or numpy
+        arrays on the CPU; `ops` as in _run_plan)."""
+        n = self.n
+        cat, zeros, int32 = ops
         prod = x[..., :, None] * y[..., None, :]
-        prod = torch.cat([prod, torch.zeros_like(prod)], -1)
+        prod = cat([prod, zeros(prod, prod.shape)], -1)
         flat = prod.reshape(prod.shape[:-2] + (2 * n * n,))[..., :2 * n * n - n]
         stair = flat.reshape(flat.shape[:-1] + (n, 2 * n - 1))
-        return self._reduce(stair.sum(-2, dtype=torch.int32),
-                            self._mul_bounds)
+        return stair.sum(-2, dtype=int32)
 
     def sq(self, x: Tensor) -> Tensor:
         return self.mul(x, x)

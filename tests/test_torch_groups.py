@@ -145,3 +145,40 @@ def test_unpack_weight_bits_and_gather_rows_match_jax():
                           *(torch.from_numpy(c) for c in cache))
     for j, t in zip(jp, tp):
         assert np.array_equal(np.asarray(j), t.numpy())
+
+
+def test_plain_field_routes_agree_with_each_other_and_jax():
+    """The plain field arithmetic has two routes over one code path: numpy
+    views for CPU tensors (what every CPU test runs) and torch ops (what
+    CUDA tensors run, here on CPU tensors).  For each field, on seeded
+    loose limbs, both give JAX's FieldSpec.mul limb for limb, and the
+    same reduction of an add and of a sub."""
+    from consensus_overlord_tpu.ops import edwards as jed
+    from consensus_overlord_tpu.ops import field as jfield
+    from consensus_overlord_tpu.ops import weierstrass as jw
+    from consensus_overlord_tpu_torch.ops import field as tfield
+
+    rng = np.random.default_rng(41)
+    for jspec, spec in zip(
+            (jfield.BLS12_381_FQ, jed.FE, jw.FQ_SECP, jw.FQ_SM2),
+            (tfield.BLS12_381_FQ, tfield.ED25519_FQ, tfield.SECP256K1_FQ,
+             tfield.SM2_FQ)):
+        x, y = (rng.integers(0, spec.loose_max + 1, size=(5, spec.n),
+                             dtype=np.int32) for _ in range(2))
+        tx, ty = torch.from_numpy(x), torch.from_numpy(y)
+        fold = spec.const("fold", "cpu")
+
+        def torch_route(acc, bounds):
+            plan = spec._plan(list(bounds))
+            return spec._run_plan(acc, plan, fold, tfield._TORCH_OPS)
+
+        want = np.asarray(jspec.mul(jnp.asarray(x), jnp.asarray(y)))
+        conv = spec._conv(tx, ty, tfield._TORCH_OPS)
+        assert np.array_equal(torch_route(conv, spec._mul_bounds).numpy(),
+                              want)
+        assert np.array_equal(spec.mul_plain(tx, ty).numpy(), want)
+        for acc, bounds in ((tx + ty, spec._small_bounds(2)),
+                            (tx + (spec.const("pad", "cpu") - ty),
+                             spec._sub_bounds)):
+            assert torch.equal(torch_route(acc.clone(), bounds),
+                               spec._reduce(acc.clone(), bounds))

@@ -231,7 +231,12 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                    "consensus_overlord_tpu_torch.sim.grpc_fakes",
                    "consensus_overlord_tpu_torch.sim.harness",
                    "consensus_overlord_tpu_torch.sim.multichain",
-                   "consensus_overlord_tpu_torch.sim.run"):
+                   "consensus_overlord_tpu_torch.sim.run",
+                   "consensus_overlord_tpu_torch.tools",
+                   "consensus_overlord_tpu_torch.tools.fixtures",
+                   "consensus_overlord_tpu_torch.tools.pairing_smoke",
+                   "consensus_overlord_tpu_torch.tools.profile_verify",
+                   "consensus_overlord_tpu_torch.tools.warm_cache"):
         assert module in modules, module
     code = ("import importlib, sys\n"
             "for m in ('grpc', 'prometheus_client', 'google.protobuf'):\n"
